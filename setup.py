@@ -35,10 +35,13 @@ setup(
     description='TPU-native super-resolution framework for the '
                 'SR-CACO-2 microscopy benchmark',
     packages=find_packages(include=['srcaco2_tpu',
-                                    'srcaco2_tpu.*']),
+                                    'srcaco2_tpu.*',
+                                    'srcaco2_tpu_torch',
+                                    'srcaco2_tpu_torch.*']),
     python_requires='>=3.10',
     install_requires=['jax', 'flax', 'optax', 'orbax-checkpoint',
                       'numpy', 'pyyaml'],
-    package_data={'srcaco2_tpu.native': ['*.cpp']},
+    package_data={'srcaco2_tpu.native': ['*.cpp'],
+                  'srcaco2_tpu_torch.ops': ['csrc/*.cu']},
     cmdclass={'build_py': BuildWithNative},
 )

@@ -1,0 +1,269 @@
+"""FusedBlockStack: a stack of Swin blocks over stacked parameters
+(port of srcaco2_tpu/models/swin_fused.py).
+
+Paths, chosen from the input's shape and device:
+  * tiled (H, W multiples of 2ws, T = H*W > 256): the image is cut into
+    2ws x 2ws tiles; the per-block cyclic shift, tile partition and
+    group-major tile order fold into one token gather, and every block
+    runs as one call of the grouped fused block
+    (ops/swin_block.fused_swin_block_grouped: the CUDA kernel on the
+    card, its plain version on the CPU). This is the serving path.
+  * windowed (any shape, CPU tensors only): the classic roll /
+    window-partition formulation, kept as a second oracle for tests.
+On CUDA tensors the shapes the tiled path cannot take raise
+NotImplementedError: the training-patch path (T <= 256, the fused block
+with backward) and the windowed path are not ported to the card yet.
+
+Parameters are stacked over depth d (leading dim), named as the JAX
+leaves with LayerNorm `scale` -> `weight`; dense kernels keep the JAX
+(in, out) layout.
+"""
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from srcaco2_tpu_torch.models.swinir import (relative_position_index,
+                                             shift_attn_mask,
+                                             window_partition,
+                                             window_reverse)
+from srcaco2_tpu_torch.ops.swin_block import (MAX_T, NEG_INF, LN_EPS,
+                                              _dot, _gelu, build_attn_bias,
+                                              fused_swin_block_grouped,
+                                              pack_block_params)
+
+BLOCK_KEYS = ('ln1_weight', 'ln1_bias', 'qkv_kernel', 'qkv_bias',
+              'proj_kernel', 'proj_bias', 'ln2_weight', 'ln2_bias',
+              'mlp1_kernel', 'mlp1_bias', 'mlp2_kernel', 'mlp2_bias')
+
+
+def _tile_group_masks(ws: int, shift: int) -> np.ndarray:
+    """(4, T, T) extra edge masks of a 2x2-window tile, groups ordered
+    (interior, right-edge, bottom-edge, corner): inside an image-edge
+    window the shift wrap splits tokens into regions that must not
+    attend to each other; cross-window pairs are masked by the base
+    bias already."""
+    tl = 2 * ws
+    t = tl * tl
+    ys, xs = np.meshgrid(np.arange(tl), np.arange(tl), indexing='ij')
+    ys, xs = ys.ravel(), xs.ravel()
+    win = (ys // ws) * 2 + xs // ws
+    same_win = win[:, None] == win[None, :]
+
+    def reg(v, edge):
+        if not (edge and shift):
+            return np.zeros(t, np.int64)
+        band = (v // ws) == 1
+        inner = (v % ws) < (ws - shift)
+        return np.where(band, np.where(inner, 1, 2), 0)
+
+    masks = []
+    for ey, ex in ((0, 0), (0, 1), (1, 0), (1, 1)):
+        rr = reg(ys, ey) * 3 + reg(xs, ex)
+        same_reg = rr[:, None] == rr[None, :]
+        masks.append(np.where(same_win & ~same_reg, NEG_INF, 0.0))
+    return np.stack(masks).astype(np.float32)
+
+
+class _TileLayout(NamedTuple):
+    perm: np.ndarray      # (B*H*W,) gather: rolled, group-major tiles
+    inv: np.ndarray       # (B*H*W,) inverse gather back to raster
+    gid: np.ndarray       # (B*nt,) bias group of each tile
+
+
+def _tile_layout(b: int, h: int, w: int, ws: int, shift: int) -> _TileLayout:
+    """Token gather folding roll(-shift) + tile partition + group-major
+    tile order (group, image, tile) into one index array, and each
+    tile's bias group."""
+    tl = 2 * ws
+    nty, ntx = h // tl, w // tl
+    ty, tx = np.meshgrid(np.arange(tl), np.arange(tl), indexing='ij')
+    ty, tx = ty.ravel(), tx.ravel()
+
+    def grp(i, j):
+        return (2 if i == nty - 1 else 0) + (1 if j == ntx - 1 else 0)
+
+    rows, gid = [], []
+    for g in range(4):
+        tiles = [(i, j) for i in range(nty) for j in range(ntx)
+                 if grp(i, j) == g]
+        for bi in range(b):
+            for (i, j) in tiles:
+                sr = (i * tl + ty + shift) % h
+                sc = (j * tl + tx + shift) % w
+                rows.append(bi * h * w + sr * w + sc)
+                gid.append(g)
+    perm = np.concatenate(rows).astype(np.int64)
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(perm.size)
+    return _TileLayout(perm, inv, np.asarray(gid, np.int32))
+
+
+class _TilePlan(NamedTuple):
+    perm0: torch.Tensor   # first gather, raster -> block 0's tiles
+    trans: list           # per block: its tiles -> next block's tiles
+    gids: list            # per block: (n_tiles,) int32 bias group
+    masks: torch.Tensor   # (2, 4, 1, T, T) edge masks (no shift, shift)
+
+
+class FusedBlockStack(nn.Module):
+    """depth Swin blocks (shift 0 / ws//2 alternating) over stacked
+    parameters. (B, H, W, C) in and out, H and W multiples of ws; the
+    stream is carried in `dtype`."""
+
+    def __init__(self, dim: int, depth: int, num_heads: int,
+                 window_size: int, mlp_ratio: float, *,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        self.dim, self.depth, self.num_heads = dim, depth, num_heads
+        self.window_size, self.dtype = window_size, dtype
+        d, c = depth, dim
+        ch = int(c * mlp_ratio)
+        nb = (2 * window_size - 1) ** 2
+        shapes = {'ln1_weight': (d, c), 'ln1_bias': (d, c),
+                  'qkv_kernel': (d, c, 3 * c), 'qkv_bias': (d, 3 * c),
+                  'rel_pos_table': (d, nb, num_heads),
+                  'proj_kernel': (d, c, c), 'proj_bias': (d, c),
+                  'ln2_weight': (d, c), 'ln2_bias': (d, c),
+                  'mlp1_kernel': (d, c, ch), 'mlp1_bias': (d, ch),
+                  'mlp2_kernel': (d, ch, c), 'mlp2_bias': (d, c)}
+        for name, shape in shapes.items():
+            self.register_parameter(name, nn.Parameter(
+                torch.zeros(shape, device=device)))
+        # the grouped block function; a measurement can swap in the
+        # plain version to compare the two paths end to end
+        self.block_op = fused_swin_block_grouped
+        self._plans = {}
+
+    def reset_parameters(self, gen: torch.Generator):
+        """LayerNorms at (1, 0), zero biases, truncated-normal dense
+        kernels (std 1/sqrt(fan_in), flax lecun_normal) and bias tables
+        (std 0.02)."""
+        with torch.no_grad():
+            for name, p in self.named_parameters():
+                if name.startswith('ln') and name.endswith('weight'):
+                    p.fill_(1.0)
+                elif name.endswith('kernel') or name == 'rel_pos_table':
+                    std = (0.02 if name == 'rel_pos_table'
+                           else 1.0 / math.sqrt(p.shape[-2]))
+                    t = torch.empty(p.shape)
+                    nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std,
+                                          generator=gen)
+                    p.copy_(t)
+                else:
+                    p.zero_()
+
+    def _block_params(self):
+        return {k: getattr(self, k) for k in BLOCK_KEYS}
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, h, w, c = x.shape
+        ws = self.window_size
+        if (h * w > MAX_T and 4 * ws * ws <= MAX_T
+                and h % (2 * ws) == 0 and w % (2 * ws) == 0):
+            return self._tiled_path(x)
+        if x.device.type == 'cpu':
+            return self._windowed_path(x)
+        if h * w <= MAX_T:
+            raise NotImplementedError(
+                f'{h}x{w} tokens <= {MAX_T}: the training-patch path (fused '
+                'block with backward) is not ported to the card yet; see '
+                'ROADMAP.md')
+        raise NotImplementedError(
+            f'{h}x{w} is not a multiple of the {2 * ws}-pixel tile: the '
+            'windowed path runs only on the CPU so far; see ROADMAP.md')
+
+    def _plan(self, b: int, h: int, w: int, device) -> _TilePlan:
+        key = (b, h, w, str(device))
+        if key not in self._plans:
+            ws, d = self.window_size, self.depth
+            lays = (_tile_layout(b, h, w, ws, 0),
+                    _tile_layout(b, h, w, ws, ws // 2))
+            pars = [i % 2 for i in range(d)]
+            trans = [lays[pars[i]].inv[lays[pars[i + 1]].perm]
+                     if i < d - 1 else lays[pars[i]].inv
+                     for i in range(d)]
+
+            def dev(a):
+                return torch.as_tensor(a).to(device)
+
+            masks = np.stack([_tile_group_masks(ws, 0),
+                              _tile_group_masks(ws, ws // 2)])[:, :, None]
+            self._plans[key] = _TilePlan(
+                dev(lays[0].perm), [dev(t) for t in trans],
+                [dev(lays[p].gid) for p in pars], dev(masks))
+        return self._plans[key]
+
+    def _tiled_path(self, x: torch.Tensor) -> torch.Tensor:
+        b, h, w, c = x.shape
+        ws, nh, cdt = self.window_size, self.num_heads, self.dtype
+        tl = 2 * ws
+        t = tl * tl
+        nt = (h // tl) * (w // tl)
+        plan = self._plan(b, h, w, x.device)
+        params = self._block_params()
+        rel_bias = build_attn_bias(self.rel_pos_table, tl, tl, ws,
+                                   shifts=(0,) * self.depth)
+        packed = (pack_block_params(params, nh, cdt)
+                  if x.device.type == 'cuda' else None)
+        carry = x.reshape(b * h * w, c).to(cdt)[plan.perm0]
+        for i in range(self.depth):
+            bias_g = (rel_bias[i][None] + plan.masks[i % 2]).contiguous()
+            y = self.block_op(
+                carry.reshape(b * nt, t, c),
+                {k: v[i] for k, v in params.items()}, bias_g, plan.gids[i],
+                heads=nh, compute_dtype=cdt,
+                packed=None if packed is None else packed.block(i))
+            carry = y.reshape(b * h * w, c)[plan.trans[i]]
+        return carry.reshape(b, h, w, c)
+
+    def _windowed_path(self, x: torch.Tensor) -> torch.Tensor:
+        """Classic shifted-window formulation (CPU)."""
+        b, h, w, c = x.shape
+        ws, nh, d, cdt = self.window_size, self.num_heads, self.depth, \
+            self.dtype
+        hd = c // nh
+        n = ws * ws
+        nw = (h // ws) * (w // ws)
+        rel = torch.as_tensor(relative_position_index(ws).reshape(-1),
+                              dtype=torch.long)
+        smask = torch.as_tensor(shift_attn_mask(h, w, ws, ws // 2))
+
+        def ln(z, g, bb):
+            zf = z.float()
+            mu = zf.mean(-1, keepdim=True)
+            var = zf.var(-1, unbiased=False, keepdim=True)
+            return ((zf - mu) * torch.rsqrt(var + LN_EPS) * g
+                    + bb).to(cdt)
+
+        def dense(z, k, bb):
+            return (_dot(z.to(cdt), k.to(cdt)) + bb).to(cdt)
+
+        carry = x.to(cdt)
+        for i in range(d):
+            p = {k: v[i].float() for k, v in self._block_params().items()}
+            shift = 0 if i % 2 == 0 else ws // 2
+            y = ln(carry, p['ln1_weight'], p['ln1_bias'])
+            y = torch.roll(y, (-shift, -shift), dims=(1, 2))
+            qkv = dense(window_partition(y, ws), p['qkv_kernel'],
+                        p['qkv_bias'])
+            q, k, v = qkv.reshape(-1, n, 3, nh, hd).permute(2, 0, 3, 1, 4)
+            attn = _dot(q * hd ** -0.5, k.transpose(-1, -2))
+            bias = self.rel_pos_table[i].float()[rel].reshape(n, n, nh)
+            attn = attn + bias.permute(2, 0, 1)[None]
+            if shift:
+                attn = (attn.reshape(-1, nw, nh, n, n)
+                        + smask[None, :, None]).reshape(-1, nh, n, n)
+            attn = torch.softmax(attn, dim=-1)
+            o = _dot(attn.to(cdt), v).to(cdt).permute(0, 2, 1, 3)
+            o = dense(o.reshape(-1, n, c), p['proj_kernel'], p['proj_bias'])
+            y = torch.roll(window_reverse(o, ws, h, w), (shift, shift),
+                           dims=(1, 2))
+            z = carry + y
+            u = dense(ln(z, p['ln2_weight'], p['ln2_bias']),
+                      p['mlp1_kernel'], p['mlp1_bias'])
+            u = _gelu(u.float()).to(cdt)
+            carry = z + dense(u, p['mlp2_kernel'], p['mlp2_bias'])
+        return carry
