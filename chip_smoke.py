@@ -6,19 +6,35 @@
 With --out-dir, the nvcc log (-Xptxas -v) and a JSON record of the run
 are written to DIR as well.
 
-Phases, each printing one JSON line; any failure exits non-zero:
+Phases, in this order, each printing one JSON line; any failure exits
+non-zero:
   card          name and power limit (nvidia-smi), torch and CUDA versions
   build         nvcc build of every kernel source under
-                srcaco2_tpu_torch/ops/csrc
-  kernel_check  each kernel against its plain PyTorch version on the card
-                at the serving shapes, f32 and bf16, with stated tolerances
-  kernel_time   median ms of each kernel and its plain version beside the
-                least time the card could take (bound)
+                srcaco2_tpu_torch/ops/csrc; each kernel's shared memory
+  kernel_check  K5 (tiled block forward) against its plain PyTorch
+                version on the card at the serving shapes, f32 and bf16,
+                with stated tolerances
+  kernel_time   median ms of K5 and its plain version beside the least
+                time the card could take (bound)
+  kernel_check_train  K1 (block forward) and K2 (block backward: dx, 12
+                weight grads, dbias) against their plain versions at
+                bench.py's training shapes, shifts 0 and 4, f32 and bf16
+  kernel_time_train   median ms of K1 and K2 and of their plain versions
+                beside their bounds
   serve         the x8 SwinIR flagship (bf16, random seeded weights, full
                 depth) served through SRServer: 3 requests, one with a
                 ragged tail; launch counts of the main path; images/s;
                 plain-path vs kernel-path agreement
   serve_profile device time of one served batch by kernel (torch.profiler)
+  train_compare one step's loss and grads through the kernels against the
+                plain versions (batch 16, bf16 and f32) from the flagship's
+                seeded initial weights
+  train         the flagship train step (bf16 over f32 params, random
+                seeded weights, full depth) at batch 128 of 16x16 LR
+                patches: warm-up, 10 timed steps, launch counts (36 K1, 36
+                K2, 0 K5 per step), ms/step, patches/s, peak memory, loss,
+                skip / corrupt flags
+  train_profile device time of one train step by kernel (torch.profiler)
   kernels       the kernels line (one JSON object)
 followed by the nvidia-smi line and, last, the {"ok": true, ...} line.
 Imports nothing of JAX or of the JAX package.
@@ -47,6 +63,21 @@ TOL = {
     # (2^-8 relative) inside the block and of the stored output, whose
     # step is 2^-7 * |out| (0.031 for |out| in [4, 8))
     'bf16': dict(atol=3e-2, rtol=2.0 ** -7),
+}
+# matrix-product FLOPs of one token through a block forward: qkv, proj
+# and the MLP at the model widths, attention inside its 64-token window
+FWD_FLOPS_PER_TOKEN = (2 * (3 * C * C + C * C + 2 * C * CH)
+                       + 2 * 2 * WS * WS * C)
+# training step (bench.py:77-126): batch 128 of 16x16 LR patches (h_size
+# 128 at x8), T = 256 tokens per patch; 256 synthetic 512^2 HR images
+TRAIN_B, PATCH, H_SIZE, N_IMG = 128, 16, 128, 256
+TRAIN_TOL = {
+    # f32: only the order of f32 sums differs (K <= 360 inside a
+    # window, 32768 tokens in the weight grads)
+    'f32': dict(out_atol=1e-3, grad_rtol=1e-4),
+    # bf16: both round at the same points; a different f32 sum order can
+    # flip a bf16 rounding (2^-8 relative) of an intermediate
+    'bf16': dict(rel_l2=2e-2),
 }
 
 
@@ -83,14 +114,13 @@ def cuda_ms(fn, reps=5, per=10):
     return statistics.median(times)
 
 
-def block_inputs(dev, gen):
+def block_inputs(dev, gen, n_tiles=BATCH * (LR // (2 * WS)) ** 2):
     """Seeded block inputs at the serving shapes: unit-variance tiles,
     one block's weights, the shifted layout's group table and groups."""
     import torch
     from srcaco2_tpu_torch.models import swin_fused as sf
     from srcaco2_tpu_torch.ops import swin_block as sb
     tl = 2 * WS
-    n_tiles = BATCH * (LR // tl) ** 2
 
     def randn(*shape, std=1.0):
         return (torch.randn(shape, generator=gen) * std).to(dev)
@@ -121,9 +151,7 @@ def block_bound(x, packed, groups, gid):
     the larger of its matrix-product FLOPs (windowed attention, model
     widths) over the bf16 peak and its bytes (inputs read once, output
     written once) over the memory rate."""
-    tokens = x.shape[0] * x.shape[1]
-    flops = tokens * (2 * (3 * C * C + C * C + 2 * C * CH)
-                      + 2 * 2 * WS * WS * C)
+    flops = x.shape[0] * x.shape[1] * FWD_FLOPS_PER_TOKEN
     nbytes = 2 * x.numel() * x.element_size() + groups.numel() * 4 \
         + gid.numel() * 4 + sum(t.numel() * t.element_size()
                                 for t in packed)
@@ -132,19 +160,158 @@ def block_bound(x, packed, groups, gid):
             'operations' if t_ops >= t_bytes else 'bytes', flops, nbytes)
 
 
-def profile_batch(srv, lr_u8, ms_per_batch):
-    """Device time of one served batch by device activity (kernels and
-    copies, torch.profiler), and the device's busy share of the batch's
-    unprofiled wall time `ms_per_batch`."""
+def train_block_inputs(dev, gen, shift):
+    """Seeded inputs of one training-patch block at bench.py's shapes:
+    B patches of 16x16 tokens (unit variance), one block's weights, the
+    (nh, T, T) bias of `shift` from a random table, and a unit-variance
+    upstream grad."""
+    import torch
+    from srcaco2_tpu_torch.ops import swin_block as sb
+    x, params, _, _ = block_inputs(dev, gen, n_tiles=TRAIN_B)
+    table = (torch.randn((1, (2 * WS - 1) ** 2, HEADS), generator=gen)
+             * 0.02).to(dev)
+    bias = sb.build_attn_bias(table, PATCH, PATCH, WS, shifts=(shift,))[0]
+    dout = torch.randn(x.shape, generator=gen).to(dev)
+    return x, params, bias.contiguous(), dout
+
+
+def _rel_l2(a, b):
+    return float((a.float() - b.float()).norm() / b.float().norm()
+                 .clamp_min(1e-30))
+
+
+def kernel_check_train(dev, gen):
+    """K1 and K2 (dx, the 12 weight grads, dbias) against their plain
+    versions at bench.py's shapes, shifts 0 and ws/2, f32 and bf16.
+    Also: dbias is exactly zero off the window blocks."""
+    import torch
+    from srcaco2_tpu_torch.ops import swin_block as sb
+    recs, ok = [], True
+    for shift in (0, WS // 2):
+        x, params, bias, dout = train_block_inputs(dev, gen, shift)
+        idx = sb._window_index_on(PATCH, PATCH, WS, shift, str(dev))
+        mask, _ = sb._mask_and_index_on(PATCH, PATCH, WS, shift, str(dev))
+        off_window = (mask != 0)[None].expand(HEADS, -1, -1)
+        for name, dt in (('f32', torch.float32), ('bf16', torch.bfloat16)):
+            xd, dd = x.to(dt), dout.to(dt)
+            packed = sb.pack_block_params(params, HEADS, dt)
+            packed_bwd = sb.pack_block_bwd_params(params, HEADS, dt)
+            out_k = sb.swin_block_fwd(xd, bias, idx, packed, heads=HEADS,
+                                      compute_dtype=dt)
+            dx_k, gp, db_k = sb.swin_block_bwd(
+                xd, dd, bias, idx, packed, packed_bwd, heads=HEADS,
+                compute_dtype=dt, ch=CH)
+            g_k = sb.unpack_block_grads(gp, HEADS, C, CH)
+            torch.cuda.synchronize()
+            out_r = sb.swin_block_ref(xd, params, bias, heads=HEADS,
+                                      compute_dtype=dt)
+            dx_r, g_r, db_r = sb.swin_block_bwd_ref(
+                xd, dd, params, bias, heads=HEADS, compute_dtype=dt)
+            pairs = {'out': (out_k, out_r), 'dx': (dx_k, dx_r),
+                     'dbias': (db_k, db_r),
+                     **{k: (g_k[k], g_r[k]) for k in sb.BLOCK_KEYS}}
+            errs = {}
+            for k, (a, b) in pairs.items():
+                diff = (a.float() - b.float()).abs()
+                e = dict(max_abs=float(diff.max()),
+                         ref_max=float(b.float().abs().max()),
+                         rel_l2=_rel_l2(a, b),
+                         finite=bool(torch.isfinite(a.float()).all()))
+                tol = TRAIN_TOL[name]
+                if name == 'f32':
+                    lim = tol['out_atol'] if k == 'out' else \
+                        tol['grad_rtol'] * e['ref_max']
+                    e['ok'] = e['max_abs'] <= lim
+                else:
+                    e['ok'] = e['rel_l2'] <= tol['rel_l2']
+                    if k == 'out':
+                        e['n_outside'] = int((diff > TOL['bf16']['atol']
+                                              + TOL['bf16']['rtol']
+                                              * b.float().abs()).sum())
+                        e['ok'] = e['ok'] and e['n_outside'] == 0
+                e['ok'] = e['ok'] and e['finite']
+                errs[k] = e
+            zero_off = bool((db_k[off_window] == 0).all())
+            rec = dict(shift=shift, dtype=name, dbias_zero_off_window=zero_off,
+                       all_ok=all(e['ok'] for e in errs.values()) and zero_off,
+                       errs=errs, tol=TRAIN_TOL[name])
+            recs.append(rec)
+            ok = ok and rec['all_ok']
+            del out_k, dx_k, gp, db_k, out_r, dx_r, g_r, db_r, pairs
+    return recs, ok
+
+
+def train_bounds(tokens, nbytes_fwd, nbytes_bwd):
+    """(bound ms, what bounds it) of K1 and K2 over `tokens` tokens:
+    matrix-product FLOPs of the windowed work (64-token windows, model
+    widths) over the bf16 peak against bytes over the memory rate. K2's
+    work is the forward without fc2 (recomputed: the kernel gets x, not
+    the intermediates), the dx chain and the weight products."""
+    n = WS * WS
+    bwd = (2 * (3 * C * C + C * C + C * CH) + 2 * 2 * n * C
+           + 2 * (4 * C * CH + 8 * C * C) + 2 * 4 * n * C)
+    out = {}
+    for name, per_tok, nb in (('fwd', FWD_FLOPS_PER_TOKEN, nbytes_fwd),
+                              ('bwd', bwd, nbytes_bwd)):
+        t_ops = tokens * per_tok / PEAK_BF16_FLOPS
+        t_bytes = nb / PEAK_BYTES
+        out[name] = dict(bound_ms=max(t_ops, t_bytes) * 1e3,
+                         bound_by='operations' if t_ops >= t_bytes
+                         else 'bytes', flops=tokens * per_tok, bytes=nb)
+    return out
+
+
+def kernel_time_train(dev, gen):
+    """Median ms of K1 and K2 and of their plain versions (bf16, shift
+    ws/2, bench.py's shapes), beside their bounds."""
+    import torch
+    from srcaco2_tpu_torch.ops import swin_block as sb
+    shift, dt = WS // 2, torch.bfloat16
+    x, params, bias, dout = train_block_inputs(dev, gen, shift)
+    xd, dd = x.to(dt), dout.to(dt)
+    idx = sb._window_index_on(PATCH, PATCH, WS, shift, str(dev))
+    packed = sb.pack_block_params(params, HEADS, dt)
+    packed_bwd = sb.pack_block_bwd_params(params, HEADS, dt)
+    fwd_ms = cuda_ms(lambda: sb.swin_block_fwd(
+        xd, bias, idx, packed, heads=HEADS, compute_dtype=dt))
+    bwd_ms = cuda_ms(lambda: sb.swin_block_bwd(
+        xd, dd, bias, idx, packed, packed_bwd, heads=HEADS,
+        compute_dtype=dt, ch=CH))
+    fwd_plain = cuda_ms(lambda: sb.swin_block_ref(
+        xd, params, bias, heads=HEADS, compute_dtype=dt), reps=3, per=3)
+    bwd_plain = cuda_ms(lambda: sb.swin_block_bwd_ref(
+        xd, dd, params, bias, heads=HEADS, compute_dtype=dt), reps=3, per=3)
+    wbytes = sum(t.numel() * t.element_size() for t in packed)
+    wbytes_bwd = sum(t.numel() * t.element_size() for t in packed_bwd)
+    act = xd.numel() * xd.element_size()
+    nb_bias = bias.numel() * 4
+    grads = sum(p.numel() for p in params.values()) * 4
+    bounds = train_bounds(xd.shape[0] * xd.shape[1],
+                          2 * act + nb_bias + wbytes,
+                          3 * act + 2 * nb_bias + wbytes + wbytes_bwd
+                          + grads)
+    return dict(
+        fwd=dict(kernel='swin_block_fwd', ms=fwd_ms, plain_ms=fwd_plain,
+                 **bounds['fwd'], tflops=bounds['fwd']['flops'] / fwd_ms
+                 / 1e9),
+        bwd=dict(kernel='swin_block_bwd', ms=bwd_ms, plain_ms=bwd_plain,
+                 **bounds['bwd'], tflops=bounds['bwd']['flops'] / bwd_ms
+                 / 1e9),
+        shape=list(xd.shape), dtype='bf16', shift=shift)
+
+
+def profile_device(fn, wall_ms):
+    """Device time of one call of fn by device activity (kernels and
+    copies, torch.profiler), and the device's busy share of the call's
+    unprofiled wall time `wall_ms`."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    x = torch.from_numpy(lr_u8).to(srv.device)
-    srv._serve(x)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        srv._serve(x)
+        fn()
         torch.cuda.synchronize()
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages()
@@ -154,15 +321,184 @@ def profile_batch(srv, lr_u8, ms_per_batch):
     device_ms = sum(r[1] for r in rows)
     if device_ms <= 0:
         raise RuntimeError('the profiler recorded no device time')
-    return dict(device_ms=device_ms, ms_per_batch=ms_per_batch,
-                device_busy_share=device_ms / ms_per_batch,
+    return dict(device_ms=device_ms, wall_ms=wall_ms,
+                device_busy_share=device_ms / wall_ms,
                 top=[dict(name=k[:80], ms=ms, calls=n, share=ms / device_ms)
-                     for k, ms, n in rows[:10]])
+                     for k, ms, n in rows[:12]])
+
+
+def smem_bytes(build):
+    """Dynamic shared memory of each kernel at the flagship widths, as
+    the kernels' own layout code computes it."""
+    import ctypes
+    out = {}
+    for stem in ('swin_block_grouped', 'swin_block_fwd', 'swin_block_bwd'):
+        fn = getattr(build.library(stem), f'{stem}_smem')
+        fn.argtypes = [ctypes.c_int] * 4
+        fn.restype = ctypes.c_longlong
+        out[stem] = {dt: int(fn(bf, C, HEADS, CH))
+                     for dt, bf in (('bf16', 1), ('f32', 0))}
+    return out
+
+
+def train_config():
+    """bench.py's training setup: l2 + 5 neg-SSIM (window 19), Adam at
+    the defaults (lr 2e-4, L2 weight decay 1e-4), uniform 128^2 HR / 16^2
+    LR patches with the dihedral augment."""
+    from srcaco2_tpu_torch.config.defaults import get_config
+    from srcaco2_tpu_torch.data import pipeline as P
+    args = get_config()
+    args.update(l2=True, ssim=True, ssim_lambda=5.0, ssim_window_s=19)
+    return args, P.PipeConfig(scale=SCALE, h_size=H_SIZE)
+
+
+def train_data(dev, seed=0):
+    """Synthetic uint8 stacks on the card (bench.py:120-126): N_IMG HR
+    512^2 and LR 64^2 images, and a generator for the batch draws."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    hr = torch.randint(0, 256, (N_IMG, 512, 512, 1), generator=gen,
+                       device=dev, dtype=torch.uint8)
+    lr = torch.randint(0, 256, (N_IMG, 512 // SCALE, 512 // SCALE, 1),
+                       generator=gen, device=dev, dtype=torch.uint8)
+    return hr, lr, gen
+
+
+def step_inputs(gen, cfg, n):
+    import torch
+    from srcaco2_tpu_torch.data import pipeline as P
+    idxs = torch.randint(0, N_IMG, (n,), generator=gen, device=gen.device)
+    return idxs, P.draw(gen, n, cfg, (512, 512))
+
+
+def train_setup(dev):
+    """The flagship (full depth and width, bf16 over f32 params, random
+    seeded weights) in training mode, its state, its train step and the
+    synthetic data."""
+    from srcaco2_tpu_torch.losses.master import build_loss
+    from srcaco2_tpu_torch.models.registry import define_g
+    from srcaco2_tpu_torch.train.schedule import build_optimizer
+    from srcaco2_tpu_torch.train.state import TrainState
+    from srcaco2_tpu_torch.train.steps import make_train_step
+    args = flagship_args()
+    targs, cfg = train_config()
+    model = define_g(args, dev, seed=0).train()
+    master = build_loss(targs)
+    tx = build_optimizer(targs['train'])
+    state = TrainState.create(dict(model.named_parameters()), tx)
+    step = make_train_step(model, master, tx, 'SwinIR', cfg,
+                           steps_per_epoch=1000)
+    hr, lr, gen = train_data(dev)
+    return dict(model=model, state=state, step=step, hr=hr, lr=lr, gen=gen,
+                cfg=cfg, master=master, args=args)
+
+
+def train_phase(ctx, smi, steps=10):
+    """The train step at batch TRAIN_B: one warm-up step, then `steps`
+    timed steps with the launch counts read around them."""
+    import torch
+    from srcaco2_tpu_torch.ops import swin_block as sb
+    step, state, cfg = ctx['step'], ctx['state'], ctx['cfg']
+    hr, lr, gen, model = ctx['hr'], ctx['lr'], ctx['gen'], ctx['model']
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, holder, ok = step(state, hr, lr, *step_inputs(gen, cfg, TRAIN_B))
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    inputs = [step_inputs(gen, cfg, TRAIN_B) for _ in range(steps)]
+    torch.cuda.reset_peak_memory_stats()
+    sb.swin_block_fwd.launches = sb.swin_block_bwd.launches = 0
+    sb.fused_swin_block_grouped.launches = 0
+    flags = torch.zeros((), device=hr.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for idxs, draws in inputs:
+        state, holder, ok = step(state, hr, lr, idxs, draws)
+        flags = flags + holder['_flags']
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(fwd=sb.swin_block_fwd.launches,
+                    bwd=sb.swin_block_bwd.launches,
+                    grouped=sb.fused_swin_block_grouped.launches)
+    n_blocks = sum(m.depth for m in model.modules()
+                   if type(m).__name__ == 'FusedBlockStack')
+    rec = dict(
+        model='SwinIR x8 pixelshuffledirect C=180 6x6 heads 6 ws 8, bf16 '
+        'compute over f32 params, random weights (seed 0), model.train()',
+        loss_terms='l2 + 5 neg-SSIM(19)', optimizer='Adam lr 2e-4 wd 1e-4',
+        batch=TRAIN_B, h_size=H_SIZE, lr_patch=[PATCH, PATCH],
+        steps=steps, warmup_s=warm_s, ms_per_step=1e3 * dt / steps,
+        patches_per_s=TRAIN_B * steps / dt,
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        loss=float(holder['total']),
+        loss_finite=bool(torch.isfinite(holder['total'])),
+        flags_sum=float(flags), step=int(state.step),
+        blocks_per_step=n_blocks, launches=launches,
+        launches_per_step={k: v / steps for k, v in launches.items()},
+        nvidia_smi=smi)
+    ok = (rec['loss_finite'] and rec['flags_sum'] == 0 and n_blocks == 36
+          and launches['fwd'] == n_blocks * steps
+          and launches['bwd'] == n_blocks * steps
+          and launches['grouped'] == 0)
+    return rec, ok
+
+
+def compare_paths(dev, ctx, n=16):
+    """One step's loss and grads through the kernels and through the
+    plain versions (every stack's fused block swapped), from the same
+    weights and batch of n patches, in bf16 (the flagship) and in f32
+    (the same weights with amp off)."""
+    import functools
+    import torch
+    from srcaco2_tpu_torch.data import pipeline as P
+    from srcaco2_tpu_torch.models.registry import define_g
+    from srcaco2_tpu_torch.models.swin_fused import FusedBlockStack
+    from srcaco2_tpu_torch.ops import swin_block as sb
+    from srcaco2_tpu_torch.train.steps import loss_and_grads
+    idxs, draws = step_inputs(ctx['gen'], ctx['cfg'], n)
+    batch = P.assemble(ctx['hr'], ctx['lr'], idxs, draws, ctx['cfg'])
+    plain = functools.partial(sb.fused_swin_block, plain=True)
+    out = {}
+    f32_model = define_g({**ctx['args'], 'amp': False}, dev)
+    f32_model.load_state_dict(ctx['model'].state_dict())
+    allow = torch.backends.cudnn.allow_tf32
+    for name, model in (('bf16', ctx['model']), ('f32', f32_model)):
+        torch.backends.cudnn.allow_tf32 = name != 'f32'
+        params = dict(model.named_parameters())
+        stacks = [m for m in model.modules()
+                  if isinstance(m, FusedBlockStack)]
+        runs = {}
+        for path in ('kernel', 'plain'):
+            for m in stacks:
+                m.fused_op = plain if path == 'plain' else \
+                    sb.fused_swin_block
+            loss, _, _, grads = loss_and_grads(model, ctx['master'],
+                                               'SwinIR', params, batch, 0,
+                                               1.0)
+            runs[path] = (float(loss), grads)
+        for m in stacks:
+            m.fused_op = sb.fused_swin_block
+        (lk, gk), (lp, gp) = runs['kernel'], runs['plain']
+        rel = {k: _rel_l2(gk[k], gp[k]) for k in gk}
+        worst = max(rel, key=rel.get)
+        tol = dict(loss_rtol=1e-2, grad_rel_l2=3e-2) if name == 'bf16' \
+            else dict(loss_rtol=1e-5, grad_rel_l2=1e-4)
+        out[name] = dict(loss_kernel=lk, loss_plain=lp,
+                         loss_rel=abs(lk - lp) / abs(lp),
+                         grad_rel_l2_max=rel[worst], worst_param=worst,
+                         grads_finite=all(bool(torch.isfinite(g).all())
+                                          for g in gk.values()), **tol)
+        out[name]['ok'] = (out[name]['loss_rel'] <= tol['loss_rtol']
+                           and rel[worst] <= tol['grad_rel_l2']
+                           and out[name]['grads_finite'])
+    torch.backends.cudnn.allow_tf32 = allow
+    del f32_model
+    return dict(batch=n, **out), all(v['ok'] for v in out.values())
 
 
 def flagship_args():
     from srcaco2_tpu_torch.config.net_defaults import init_net_g
-    args = {'scale': SCALE, 'n_channels': 1, 'h_size': 128, 'amp': True}
+    args = {'scale': SCALE, 'n_channels': 1, 'h_size': H_SIZE, 'amp': True}
     netG = init_net_g({'net_type': 'SwinIR'}, args)
     netG['swinir_upsampler'] = 'pixelshuffledirect'
     args['netG'] = netG
@@ -202,7 +538,8 @@ def main() -> int:
                 f.write(f'== {stem}.cu\n{log}\n')
     ptxas = [ln.strip() for log in logs.values() for ln in log.splitlines()
              if 'registers' in ln or 'spill' in ln]
-    emit('build', seconds=build_s, built=sorted(logs), ptxas=ptxas)
+    emit('build', seconds=build_s, built=sorted(logs), ptxas=ptxas,
+         smem_bytes=smem_bytes(build))
 
     gen = torch.Generator().manual_seed(0)
     x, params, groups, gid = block_inputs(dev, gen)
@@ -243,6 +580,14 @@ def main() -> int:
          bound_by=bound_by, flops=flops, bytes=nbytes,
          tflops=flops / kernel_ms / 1e9, nvidia_smi=smi)
     del x, xb, params, groups, gid, packed
+
+    train_checks, ok = kernel_check_train(dev, gen)
+    emit('kernel_check_train', checks=train_checks, nvidia_smi=smi)
+    if not ok:
+        print('chip_smoke: kernel_check_train failed', file=sys.stderr)
+        return 1
+    train_times = emit('kernel_time_train', **kernel_time_train(dev, gen),
+                       library_ms=None, nvidia_smi=smi)
 
     args = flagship_args()
     state = define_g(args, dev, seed=0).state_dict()
@@ -330,28 +675,71 @@ def main() -> int:
             and close):
         print('chip_smoke: serve failed', file=sys.stderr)
         return 1
-    prof = emit('serve_profile', **profile_batch(srv, req_b,
-                                                 serve['ms_per_batch']),
-                nvidia_smi=smi)
+    x_b = torch.from_numpy(req_b).to(dev)
+    prof = emit('serve_profile', **profile_device(
+        lambda: srv._serve(x_b), serve['ms_per_batch']), nvidia_smi=smi)
+    del srv, x_b
 
+    # the paths are compared from the seeded initial weights, then the
+    # same state trains
+    ctx = train_setup(dev)
+    compare, ok = compare_paths(dev, ctx)
+    compare = emit('train_compare', **compare, nvidia_smi=smi)
+    if not ok:
+        print('chip_smoke: train_compare failed', file=sys.stderr)
+        return 1
+    train, ok = train_phase(ctx, smi)
+    train = emit('train', **train)
+    if not ok:
+        print('chip_smoke: train failed', file=sys.stderr)
+        return 1
+    step, state = ctx['step'], ctx['state']
+    inputs = step_inputs(ctx['gen'], ctx['cfg'], TRAIN_B)
+    train_prof = emit('train_profile', **profile_device(
+        lambda: step(state, ctx['hr'], ctx['lr'], *inputs),
+        train['ms_per_step']), nvidia_smi=smi)
+
+    tpu = 'srcaco2_tpu/ops/pallas/swin_block.py'
+    src = 'srcaco2_tpu_torch/ops/csrc'
+    bf16_checks = [c for c in train_checks if c['dtype'] == 'bf16']
     kernels = [{
         'name': 'swin_block_grouped', 'route': 'cuda',
-        'source': 'srcaco2_tpu_torch/ops/csrc/swin_block_grouped.cu',
-        'replaces': 'srcaco2_tpu/ops/pallas/swin_block.py:1039',
+        'source': f'{src}/swin_block_grouped.cu',
+        'replaces': f'{tpu}:1039',
         'launches': launches, 'max_abs_err': errs['bf16']['max_abs_err'],
         'ms': kernel_ms, 'plain_ms': plain_ms, 'bound_ms': bound_ms,
         'bound_by': bound_by,
         # no single PyTorch call computes a whole Swin block
         'library_ms': None}]
-    emit('kernels', kernels=[{'name': k['name'],
-                              'tpu': 'srcaco2_tpu/ops/pallas/swin_block.py:'
-                              '_fwd_kernel_grouped',
-                              'check_passed': True} for k in kernels])
+    for name, key, line, err in (('swin_block_fwd', 'fwd', 423, 'out'),
+                                 ('swin_block_bwd', 'bwd', 443, 'dx')):
+        t = train_times[key]
+        kernels.append({
+            'name': name, 'route': 'cuda', 'source': f'{src}/{name}.cu',
+            'replaces': f'{tpu}:{line}',
+            'launches': train['launches'][key],
+            'max_abs_err': max(c['errs'][err]['max_abs']
+                               for c in bf16_checks),
+            'ms': t['ms'], 'plain_ms': t['plain_ms'],
+            'bound_ms': t['bound_ms'], 'bound_by': t['bound_by'],
+            # no single PyTorch call computes a whole Swin block or its
+            # backward
+            'library_ms': None})
+    emit('kernels', kernels=[
+        {'name': 'swin_block_grouped', 'tpu': f'{tpu}:_fwd_kernel_grouped',
+         'check_passed': True},
+        {'name': 'swin_block_fwd', 'tpu': f'{tpu}:_fwd_kernel',
+         'check_passed': True},
+        {'name': 'swin_block_bwd', 'tpu': f'{tpu}:_bwd_kernel',
+         'check_passed': True}])
     if out_dir:
         with open(os.path.join(out_dir, 'chip_smoke.json'), 'w') as f:
             json.dump({'kernel_check': rec, 'serve': serve,
-                       'serve_profile': prof, 'kernels': kernels}, f,
-                      indent=1)
+                       'serve_profile': prof,
+                       'kernel_check_train': train_checks,
+                       'kernel_time_train': train_times, 'train': train,
+                       'train_compare': compare, 'train_profile': train_prof,
+                       'kernels': kernels}, f, indent=1)
     print(json.dumps({'kernels': kernels}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

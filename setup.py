@@ -42,6 +42,6 @@ setup(
     install_requires=['jax', 'flax', 'optax', 'orbax-checkpoint',
                       'numpy', 'pyyaml'],
     package_data={'srcaco2_tpu.native': ['*.cpp'],
-                  'srcaco2_tpu_torch.ops': ['csrc/*.cu']},
+                  'srcaco2_tpu_torch.ops': ['csrc/*.cu', 'csrc/*.cuh']},
     cmdclass={'build_py': BuildWithNative},
 )

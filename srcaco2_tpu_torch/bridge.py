@@ -13,6 +13,10 @@ Leaves are matched by name, never by order:
     stages.{s}.blocks.<leaf>.
 Any flax leaf that maps to no port parameter, any port parameter left
 unfilled, and any shape mismatch raise.
+
+`optax_to_torch` carries an optax chain state (the Adam moments, its
+count and the schedule count) into the port's optimizer state
+(train/schedule.py) by the same name mapping.
 """
 import re
 from typing import Dict, Iterator, Tuple
@@ -106,4 +110,58 @@ def flax_to_torch(params_np: Dict, model: nn.Module
     missing = sorted(set(want) - set(out))
     if missing:
         raise KeyError(f'model params not filled from flax: {missing}')
+    return out
+
+
+def _fields(state):
+    return tuple(getattr(state, '_fields', ()))
+
+
+def optax_to_torch(opt_state, model: nn.Module, template: dict) -> dict:
+    """An optax chain state as nested numpy-convertible leaves (the
+    tuple of clip / add_decayed_weights / ScaleByAdamState or
+    ScaleByAmsgradState or TraceState / ScaleByScheduleState states of
+    srcaco2_tpu/train/schedule.py:build_optimizer) -> the port's
+    optimizer state, shaped like `template` (the port's tx.init(params)
+    for `model`). Moment trees are mapped as flax_to_torch maps params;
+    counts become int32 scalars. Any optax leaf the port has no place
+    for, and any place of the template left unfilled, raise. Tensors
+    are CPU f32 / int32; move them with the model."""
+    out = {}
+
+    def put(section, key, value):
+        if section not in template or key not in template[section]:
+            raise KeyError(f'optax state {section}.{key} has no place in '
+                           'the port optimizer state')
+        if key in out.setdefault(section, {}):
+            raise KeyError(f'{section}.{key} filled twice')
+        out[section][key] = value
+
+    def count(v):
+        return torch.tensor(int(np.asarray(v)), dtype=torch.int32)
+
+    for st in opt_state:
+        names = _fields(st)
+        if not names:           # EmptyState of clip / weight decay
+            continue
+        if names in (('count', 'mu', 'nu'), ('count', 'mu', 'nu', 'nu_max')):
+            put('adam', 'count', count(st.count))
+            for key in names[1:]:
+                put('adam', key, flax_to_torch(getattr(st, key), model))
+        elif names == ('trace',):
+            put('trace', 'trace', flax_to_torch(st.trace, model))
+        elif names == ('count',):
+            put('schedule', 'count', count(st.count))
+        else:
+            raise KeyError(f'unmapped optax state {type(st).__name__} '
+                           f'{names}')
+    for section, entries in template.items():
+        for key, ref in entries.items():
+            if key not in out.get(section, {}):
+                raise KeyError(f'port optimizer state {section}.{key} not '
+                               'filled from optax')
+            got = out[section][key]
+            if isinstance(ref, dict) and set(got) != set(ref):
+                raise KeyError(f'{section}.{key}: names differ from the '
+                               'model parameters')
     return out

@@ -14,3 +14,19 @@ US_NEAREST_CONV = 'nearest_conv'
 
 R_CONNECTION_1CONV = '1conv'
 R_CONNECTION_3CONV = '3conv'
+
+# nets whose input the step dispatch names (train/steps.py:net_input)
+CSRCNN = 'CSRCNN'
+NET_TYPE_UNET = 'unet'
+NET_TYPE_PYRAMID = 'pyramid'
+
+# patch sampling (only uniform sampling is ported)
+SAMPLE_UNIF = 'uniform'
+TH_AUTO = 'automatic_threshold'
+TH_FIX = 'fix_threshold'
+
+# optimizers and schedules
+SGD = 'sgd'
+ADAM = 'adam'
+MULTISTEPLR = 'MultiStepLR'
+MYSTEPLR = 'MyStepLR'

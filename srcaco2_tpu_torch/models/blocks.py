@@ -34,8 +34,11 @@ class Conv(nn.Module):
         nn.init.zeros_(self.bias)
 
     def forward(self, x):
-        return F.conv2d(x.to(self.dtype), self.weight.to(self.dtype),
-                        self.bias.to(self.dtype), padding=self.pad)
+        # flax's two rounding points: the convolution rounds to the
+        # compute dtype, then the bias is added in that dtype
+        y = F.conv2d(x.to(self.dtype), self.weight.to(self.dtype),
+                     padding=self.pad)
+        return y + self.bias.to(self.dtype)[:, None, None]
 
 
 def _uniform_(p: torch.Tensor, lo: float, hi: float,

@@ -1,18 +1,27 @@
 """FusedBlockStack: a stack of Swin blocks over stacked parameters
 (port of srcaco2_tpu/models/swin_fused.py).
 
-Paths, chosen from the input's shape and device:
-  * tiled (H, W multiples of 2ws, T = H*W > 256): the image is cut into
-    2ws x 2ws tiles; the per-block cyclic shift, tile partition and
-    group-major tile order fold into one token gather, and every block
-    runs as one call of the grouped fused block
+Paths, chosen from the input's shape, the module's training flag
+(`model.train()` / `model.eval()`, the counterpart of JAX's `train`) and
+the device:
+  * fused (T = H*W <= 256, the training patches): every block is one
+    call of ops/swin_block.fused_swin_block (K1 forward, K2 backward on
+    the card; their plain versions on the CPU), with the cyclic shift
+    and the window partition folded into the (nh, T, T) attention bias
+    that build_attn_bias gathers from the bias tables. This is the
+    training path (`_pallas_path` in the JAX package).
+  * tiled (evaluation only, H and W multiples of 2ws, T > 256): the
+    image is cut into 2ws x 2ws tiles; the per-block cyclic shift, tile
+    partition and group-major tile order fold into one token gather,
+    and every block runs as one call of the grouped fused block
     (ops/swin_block.fused_swin_block_grouped: the CUDA kernel on the
-    card, its plain version on the CPU). This is the serving path.
+    card, its plain version on the CPU). It has no backward, so a
+    training module never takes it, as JAX's `allow_tiled = not train`.
+    This is the serving path.
   * windowed (any shape, CPU tensors only): the classic roll /
     window-partition formulation, kept as a second oracle for tests.
-On CUDA tensors the shapes the tiled path cannot take raise
-NotImplementedError: the training-patch path (T <= 256, the fused block
-with backward) and the windowed path are not ported to the card yet.
+On CUDA tensors the shapes neither kernel path takes raise
+NotImplementedError: the windowed path is not ported to the card yet.
 
 Parameters are stacked over depth d (leading dim), named as the JAX
 leaves with LayerNorm `scale` -> `weight`; dense kernels keep the JAX
@@ -29,14 +38,13 @@ from srcaco2_tpu_torch.models.swinir import (relative_position_index,
                                              shift_attn_mask,
                                              window_partition,
                                              window_reverse)
-from srcaco2_tpu_torch.ops.swin_block import (MAX_T, NEG_INF, LN_EPS,
-                                              _dot, _gelu, build_attn_bias,
+from srcaco2_tpu_torch.ops.swin_block import (BLOCK_KEYS, MAX_T, NEG_INF,
+                                              LN_EPS, _dot, _gelu,
+                                              block_shift, build_attn_bias,
+                                              fused_swin_block,
                                               fused_swin_block_grouped,
+                                              pack_block_bwd_params,
                                               pack_block_params)
-
-BLOCK_KEYS = ('ln1_weight', 'ln1_bias', 'qkv_kernel', 'qkv_bias',
-              'proj_kernel', 'proj_bias', 'ln2_weight', 'ln2_bias',
-              'mlp1_kernel', 'mlp1_bias', 'mlp2_kernel', 'mlp2_bias')
 
 
 def _tile_group_masks(ws: int, shift: int) -> np.ndarray:
@@ -132,9 +140,10 @@ class FusedBlockStack(nn.Module):
         for name, shape in shapes.items():
             self.register_parameter(name, nn.Parameter(
                 torch.zeros(shape, device=device)))
-        # the grouped block function; a measurement can swap in the
-        # plain version to compare the two paths end to end
+        # the block functions of the tiled and fused paths; a
+        # measurement can swap in the plain versions to compare paths
         self.block_op = fused_swin_block_grouped
+        self.fused_op = fused_swin_block
         self._plans = {}
 
     def reset_parameters(self, gen: torch.Generator):
@@ -161,19 +170,42 @@ class FusedBlockStack(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, h, w, c = x.shape
         ws = self.window_size
-        if (h * w > MAX_T and 4 * ws * ws <= MAX_T
+        if h * w <= MAX_T:
+            return self._fused_path(x)
+        if (not self.training and 4 * ws * ws <= MAX_T
                 and h % (2 * ws) == 0 and w % (2 * ws) == 0):
             return self._tiled_path(x)
         if x.device.type == 'cpu':
             return self._windowed_path(x)
-        if h * w <= MAX_T:
-            raise NotImplementedError(
-                f'{h}x{w} tokens <= {MAX_T}: the training-patch path (fused '
-                'block with backward) is not ported to the card yet; see '
-                'ROADMAP.md')
+        why = ('the tiled path is for evaluation only' if self.training
+               else f'{h}x{w} is not a multiple of the {2 * ws}-pixel tile')
         raise NotImplementedError(
-            f'{h}x{w} is not a multiple of the {2 * ws}-pixel tile: the '
+            f'{h}x{w} tokens > {MAX_T} on the card: {why}, and the '
             'windowed path runs only on the CPU so far; see ROADMAP.md')
+
+    def _fused_path(self, x: torch.Tensor) -> torch.Tensor:
+        """T <= 256: one fused block (with backward) per depth step; the
+        weights are packed for the kernels once per call."""
+        b, h, w, c = x.shape
+        ws, nh, cdt = self.window_size, self.num_heads, self.dtype
+        t = h * w
+        params = self._block_params()
+        bias = build_attn_bias(self.rel_pos_table, h, w, ws)
+        packed = packed_bwd = None
+        if x.device.type == 'cuda':
+            packed = pack_block_params(params, nh, cdt)
+            if torch.is_grad_enabled():
+                packed_bwd = pack_block_bwd_params(params, nh, cdt)
+        carry = x.reshape(b, t, c).to(cdt).contiguous()
+        for i in range(self.depth):
+            carry = self.fused_op(
+                carry, {k: v[i] for k, v in params.items()}, bias[i],
+                heads=nh, window=(h, w, ws, block_shift(i, ws)),
+                compute_dtype=cdt,
+                packed=None if packed is None else packed.block(i),
+                packed_bwd=None if packed_bwd is None
+                else packed_bwd.block(i))
+        return carry.reshape(b, h, w, c)
 
     def _plan(self, b: int, h: int, w: int, device) -> _TilePlan:
         key = (b, h, w, str(device))

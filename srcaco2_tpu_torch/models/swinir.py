@@ -5,7 +5,10 @@ img_range, reflect pad to the window size, conv_first, patch-norm LN,
 residual Swin stages (RSTB: a FusedBlockStack + 1conv or 3conv
 residual), final LN, conv_after_body and the three upsamplers. Swin
 blocks work in NHWC, convolutions in NCHW. Parameters are f32; `dtype`
-is the compute dtype (bf16 under amp).
+is the compute dtype (bf16 under amp). The module's training flag
+(`model.train()` / `model.eval()`) is the JAX module's `train`
+argument: it keeps the forward-only tiled path of the Swin stages
+(`fused_tiled=not train`) out of training.
 
 State-dict names (the bridge maps the flax tree onto them):
 conv_first, patch_norm, stages.{s}.blocks.<leaf>, stages.{s}.convs.{i},

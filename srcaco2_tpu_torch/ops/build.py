@@ -31,9 +31,14 @@ def _nvcc() -> str:
 
 
 def _target(src: Path) -> Path:
-    digest = hashlib.sha1(src.read_bytes()
-                          + ' '.join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD / f'{src.stem}-{digest[:12]}.so'
+    """The library of one source: its name hashes the source, every
+    header under csrc/ (a source may include any of them) and the
+    flags, so an edited header rebuilds its includers."""
+    h = hashlib.sha1(src.read_bytes())
+    for hdr in sorted(CSRC.glob('*.cuh')):
+        h.update(hdr.read_bytes())
+    h.update(' '.join(NVCC_FLAGS).encode())
+    return BUILD / f'{src.stem}-{h.hexdigest()[:12]}.so'
 
 
 def build_all(verbose: bool = False) -> Dict[str, str]:

@@ -1,0 +1,579 @@
+// Device code shared by the fused Swin block kernels for Hopper (sm_90a):
+// swin_block_grouped.cu (K5, tiled forward), swin_block_fwd.cu (K1,
+// training-patch forward) and swin_block_bwd.cu (K2, backward, whose
+// per-window pass recomputes the forward with this code).
+//
+// The unit of work is one 64-token window per CTA (8 warps). Products
+// are warp-level mma.sync m16n8k16 (bf16 in, f32 accumulate) on
+// operands read straight from shared or global memory; the f32
+// instantiation (the non-amp path and the checks) runs plain FMA loops
+// with the same fragment ownership. Awkward widths are zero-padded by
+// the wrappers' weight layouts (K = C -> multiple of 16, hd 30 -> 32,
+// MLP hidden -> multiple of 16, output columns -> multiple of 8) and the
+// kernels zero the matching activation columns, so every pad adds exact
+// zeros.
+//
+// Rounding points follow srcaco2_tpu/ops/pallas/swin_block.py
+// (_block_fwd_math, _cast_wb) with the f32 softmax: LN f32 -> T; qkv
+// (f32 acc) -> T, + T bias -> T; scores f32 + f32 bias; f32 max/exp/sum;
+// e -> T for P.V, times f32 1/r -> T; proj (f32 acc) + f32 bias -> f32
+// residual; LN2 f32 -> T; fc1 (f32 acc) -> T, + T bias -> T; tanh-GELU in
+// T (every op rounded to T); fc2 (f32 acc) + f32 bias -> f32 residual ->
+// stored in T.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace swin {
+
+constexpr int WS = 8;             // window side
+constexpr int NW = WS * WS;       // tokens per window (one CTA)
+constexpr int THREADS = 256;      // 8 warps
+constexpr int NB = 4;             // n8 tiles per warp pass
+constexpr float LN_EPS = 1e-5f;
+constexpr float GELU_C = 0.7978845608028654f;   // sqrt(2/pi)
+constexpr float GELU_A = 0.044715f;
+constexpr float GELU_A3 = 0.134145f;            // 3 * GELU_A
+
+using bf16 = __nv_bfloat16;
+
+__host__ __device__ inline int ceil_to(int v, int m) {
+  return (v + m - 1) / m * m;
+}
+
+__host__ __device__ inline size_t align16(size_t v) {
+  return (v + 15) / 16 * 16;
+}
+
+struct Dims {
+  int c, heads, hd, ch;   // model widths
+  int hp;                 // head width padded to 16 (K of Q.K^T)
+  int ck;                 // C padded to 16 (K of qkv and fc1)
+  int cn;                 // C padded to 8 (N of proj and fc2)
+  int chp;                // MLP hidden width padded to 16
+  int ca;                 // attention width heads * hp
+};
+
+__host__ __device__ inline Dims make_dims(int c, int heads, int ch) {
+  Dims d;
+  d.c = c;
+  d.heads = heads;
+  d.hd = c / heads;
+  d.ch = ch;
+  d.hp = ceil_to(d.hd, 16);
+  d.ck = ceil_to(c, 16);
+  d.cn = ceil_to(c, 8);
+  d.chp = ceil_to(ch, 16);
+  d.ca = d.heads * d.hp;
+  return d;
+}
+
+__device__ inline float to_f32(float v) { return v; }
+__device__ inline float to_f32(bf16 v) { return __bfloat162float(v); }
+
+template <typename T> __device__ inline T from_f32(float v);
+template <> __device__ inline float from_f32<float>(float v) { return v; }
+template <> __device__ inline bf16 from_f32<bf16>(float v) {
+  return __float2bfloat16(v);   // round to nearest even
+}
+
+// Round an f32 value to T and back: the rounding point of an op in T.
+template <typename T> __device__ inline float rnd(float v) {
+  return to_f32(from_f32<T>(v));
+}
+
+__device__ inline uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// The bf16 pair (r, k), (r, k + 1) of an operand as one mma register:
+// row-major (element (r, k) at p[r * ld + k]) or, with kT, stored
+// transposed (element (r, k) at p[k * ld + r]).
+template <bool kT>
+__device__ inline uint32_t ldpair(const bf16* p, int ld, int r, int k) {
+  if constexpr (!kT) {
+    return ld32(p + r * ld + k);
+  } else {
+    const uint32_t lo = __bfloat16_as_ushort(p[k * ld + r]);
+    const uint32_t hi = __bfloat16_as_ushort(p[(k + 1) * ld + r]);
+    return lo | (hi << 16);
+  }
+}
+
+template <bool kT>
+__device__ inline float elem(const float* p, int ld, int r, int k) {
+  return kT ? p[k * ld + r] : p[r * ld + k];
+}
+
+// acc[j] += A[16 rows][K] * Bt[8 rows of tile j][K]^T for the j < nvalid
+// n8 tiles. A and Bt point at the first row of the block (row-major) or
+// its first column (transposed). Fragment ownership of mma.m16n8k16:
+// g = lane / 4 owns rows g and g + 8, t = lane % 4 owns columns 2t,
+// 2t + 1 of each n8 tile.
+template <bool kTA, bool kTB>
+__device__ inline void mma_rows(float (&acc)[NB][4], const bf16* A, int lda,
+                                const bf16* Bt, int ldb, int K, int nvalid,
+                                int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  for (int k0 = 0; k0 < K; k0 += 16) {
+    const uint32_t a0 = ldpair<kTA>(A, lda, g, k0 + 2 * t);
+    const uint32_t a1 = ldpair<kTA>(A, lda, g + 8, k0 + 2 * t);
+    const uint32_t a2 = ldpair<kTA>(A, lda, g, k0 + 2 * t + 8);
+    const uint32_t a3 = ldpair<kTA>(A, lda, g + 8, k0 + 2 * t + 8);
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      if (j < nvalid) {
+        const uint32_t b0 = ldpair<kTB>(Bt, ldb, 8 * j + g, k0 + 2 * t);
+        const uint32_t b1 = ldpair<kTB>(Bt, ldb, 8 * j + g, k0 + 2 * t + 8);
+        asm volatile(
+            "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+            "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+            : "+f"(acc[j][0]), "+f"(acc[j][1]), "+f"(acc[j][2]),
+              "+f"(acc[j][3])
+            : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+      }
+    }
+  }
+}
+
+// f32 version with the same ownership, as plain FMA loops.
+template <bool kTA, bool kTB>
+__device__ inline void mma_rows(float (&acc)[NB][4], const float* A,
+                                int lda, const float* Bt, int ldb, int K,
+                                int nvalid, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  for (int k = 0; k < K; ++k) {
+    const float lo = elem<kTA>(A, lda, g, k);
+    const float hi = elem<kTA>(A, lda, g + 8, k);
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      if (j < nvalid) {
+        const float b0 = elem<kTB>(Bt, ldb, 8 * j + 2 * t, k);
+        const float b1 = elem<kTB>(Bt, ldb, 8 * j + 2 * t + 1, k);
+        acc[j][0] = fmaf(lo, b0, acc[j][0]);
+        acc[j][1] = fmaf(lo, b1, acc[j][1]);
+        acc[j][2] = fmaf(hi, b0, acc[j][2]);
+        acc[j][3] = fmaf(hi, b1, acc[j][3]);
+      }
+    }
+  }
+}
+
+template <bool kT, typename T>
+__device__ inline const T* row_block(const T* p, int ld, int r0) {
+  return kT ? p + r0 : p + static_cast<size_t>(r0) * ld;
+}
+
+__device__ inline float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ inline float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// C[64][N] = A[64][K] . Bt[N][K]^T, handed to epi(row, col, v0, v1) for
+// the column pair (col, col + 1). N is a multiple of 8 and K of 16. Warp
+// w takes row block w % 4 and every other group of NB n8 tiles. kTA /
+// kTB read A / Bt stored transposed (see ldpair).
+template <typename T, bool kTA = false, bool kTB = false, typename Epi>
+__device__ inline void gemm64(const T* A, int lda, const T* Bt, int ldb,
+                              int K, int N, Epi epi) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = (warp & 3) * 16;
+  const int g = lane >> 2, t = lane & 3;
+  for (int n0 = (warp >> 2) * 8 * NB; n0 < N; n0 += 2 * 8 * NB) {
+    float acc[NB][4];
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+      acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+    const int nvalid = min(NB, (N - n0) / 8);
+    mma_rows<kTA, kTB>(acc, row_block<kTA>(A, lda, r0), lda,
+                       row_block<kTB>(Bt, ldb, n0), ldb, K, nvalid, lane);
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      if (j < nvalid) {
+        const int col = n0 + 8 * j + 2 * t;
+        epi(r0 + g, col, acc[j][0], acc[j][1]);
+        epi(r0 + g + 8, col, acc[j][2], acc[j][3]);
+      }
+    }
+  }
+}
+
+// gemm64 whose epilogue returns a float2 (values at (row, col) and
+// (row, col + 1)) to be summed per column over each warp's 16 rows: the
+// sums land in cs[rb * ldcs + col] for row block rb = row / 16, in a
+// fixed order (deterministic).
+template <typename T, typename Epi>
+__device__ inline void gemm64_colsum(const T* A, int lda, const T* Bt,
+                                     int ldb, int K, int N, Epi epi,
+                                     float* cs, int ldcs) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = (warp & 3) * 16;
+  const int g = lane >> 2, t = lane & 3;
+  for (int n0 = (warp >> 2) * 8 * NB; n0 < N; n0 += 2 * 8 * NB) {
+    float acc[NB][4];
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+      acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+    const int nvalid = min(NB, (N - n0) / 8);
+    mma_rows<false, false>(acc, A + r0 * lda, lda, Bt + n0 * ldb, ldb, K,
+                           nvalid, lane);
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      if (j < nvalid) {
+        const int col = n0 + 8 * j + 2 * t;
+        const float2 lo = epi(r0 + g, col, acc[j][0], acc[j][1]);
+        const float2 hi = epi(r0 + g + 8, col, acc[j][2], acc[j][3]);
+        float s0 = lo.x + hi.x, s1 = lo.y + hi.y;
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) {
+          s0 += __shfl_xor_sync(0xffffffffu, s0, o);
+          s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+        }
+        if (g == 0) {
+          cs[(warp & 3) * ldcs + col] = s0;
+          cs[(warp & 3) * ldcs + col + 1] = s1;
+        }
+      }
+    }
+  }
+}
+
+// LayerNorm of the f32 rows of X into Y (T), zeroing the pad columns
+// [c, ck) that the next product reads; the row mean and 1/std go to
+// mu / rstd when given. One warp per row.
+template <typename T>
+__device__ inline void layer_norm(const float* X, int ldx, const float* gam,
+                                  const float* bet, T* Y, int ldy,
+                                  const Dims& d, float* mu_out = nullptr,
+                                  float* rstd_out = nullptr) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = warp; r < NW; r += THREADS / 32) {
+    const float* xr = X + r * ldx;
+    float s = 0.f;
+    for (int i = lane; i < d.c; i += 32) s += xr[i];
+    const float mu = warp_sum(s) / d.c;
+    float v = 0.f;
+    for (int i = lane; i < d.c; i += 32) {
+      const float xc = xr[i] - mu;
+      v += xc * xc;
+    }
+    const float rstd = rsqrtf(warp_sum(v) / d.c + LN_EPS);
+    for (int i = lane; i < d.ck; i += 32)
+      Y[r * ldy + i] = from_f32<T>(
+          i < d.c ? (xr[i] - mu) * rstd * gam[i] + bet[i] : 0.f);
+    if (lane == 0 && mu_out) {
+      mu_out[r] = mu;
+      rstd_out[r] = rstd;
+    }
+  }
+}
+
+// The tanh term of the tanh-GELU with every op rounded to T (the JAX
+// path computes it in the compute dtype, constants included).
+template <typename T> __device__ inline float gelu_tanh(float u) {
+  const float ga = rnd<T>(GELU_A), gc = rnd<T>(GELU_C);
+  float z = rnd<T>(ga * u);
+  z = rnd<T>(z * u);
+  z = rnd<T>(z * u);
+  z = rnd<T>(u + z);
+  z = rnd<T>(gc * z);
+  return rnd<T>(tanhf(z));
+}
+
+template <typename T> __device__ inline float gelu(float u) {
+  const float th = gelu_tanh<T>(u);
+  return rnd<T>(rnd<T>(0.5f * u) * rnd<T>(1.f + th));
+}
+
+// d gelu / du in T, in the order of swin_block.py:_gelu_grad:
+// 0.5 (1 + th) + 0.5 u sech2 c (1 + 3a u u).
+template <typename T> __device__ inline float gelu_grad(float u) {
+  const float th = gelu_tanh<T>(u);
+  const float gc = rnd<T>(GELU_C), ga3 = rnd<T>(GELU_A3);
+  const float sech2 = rnd<T>(1.f - rnd<T>(th * th));
+  const float t1 = rnd<T>(0.5f * rnd<T>(1.f + th));
+  float t2 = rnd<T>(0.5f * u);
+  t2 = rnd<T>(t2 * sech2);
+  t2 = rnd<T>(t2 * gc);
+  float w = rnd<T>(ga3 * u);
+  w = rnd<T>(w * u);
+  w = rnd<T>(1.f + w);
+  t2 = rnd<T>(t2 * w);
+  return rnd<T>(t1 + t2);
+}
+
+// Block weights in the forward kernels' layout (ops/swin_block.py:
+// PackedBlock): products `act @ W^T` with W stored (N, K) row-major.
+struct FwdWeights {
+  const float* g1;
+  const float* b1;
+  const void* wqkv;           // (heads, 3, hp, ck) T, q pre-scaled
+  const void* bqkv;           // (heads, 3, hp) T
+  const void* wproj;          // (cn, heads * hp) T
+  const float* bproj;
+  const float* g2;
+  const float* b2;
+  const void* w1;             // (chp, ck) T
+  const void* bm1;            // (chp,) T
+  const void* w2;             // (cn, chp) T
+  const float* bm2;
+};
+
+// Takes the 12 weight pointers in PackedBlock order.
+inline FwdWeights fwd_weights(const void* const* p) {
+  return FwdWeights{static_cast<const float*>(p[0]),
+                    static_cast<const float*>(p[1]), p[2], p[3], p[4],
+                    static_cast<const float*>(p[5]),
+                    static_cast<const float*>(p[6]),
+                    static_cast<const float*>(p[7]), p[8], p[9], p[10],
+                    static_cast<const float*>(p[11])};
+}
+
+// Shared-memory buffers of the block forward. Row strides carry 8
+// spare elements (4 for f32 scores) so the 8 fragment rows of a warp
+// fall on distinct banks.
+template <typename T>
+struct FwdSmem {
+  float* X;    // [64][ldx] f32 residual rows
+  T* Y;        // [64][ldy] LN output (ck columns)
+  T* O;        // [64][ldo] attention output (heads * hp columns)
+  T* Q;        // [64][ldq] one head's q
+  T* K;        // [64][ldq] one head's k
+  T* Vt;       // [hp][ldvt] one head's v, transposed
+  float* S;    // [64][lds] scores
+  T* P;        // [64][ldp] exp(s - max) in T
+  float* rinv; // [64]
+  T* H;        // [64][ldh] MLP hidden activations (forward kernels only)
+  int ldx, ldy, ldo, ldq, ldvt, lds, ldp, ldh;
+};
+
+// The forward kernels' layout: H reuses the attention buffers.
+struct FwdLayout {
+  size_t x, y, o, q, k, vt, s, p, rinv, h, total;
+};
+
+template <typename T>
+__host__ __device__ inline void fwd_strides(const Dims& d, int* ld) {
+  ld[0] = d.c;            // ldx
+  ld[1] = d.ck + 8;       // ldy
+  ld[2] = d.ca + 8;       // ldo
+  ld[3] = d.hp + 8;       // ldq
+  ld[4] = NW + 8;         // ldvt
+  ld[5] = NW + 4;         // lds
+  ld[6] = NW + 8;         // ldp
+  ld[7] = d.chp + 8;      // ldh
+}
+
+template <typename T>
+__host__ __device__ inline FwdLayout make_fwd_layout(const Dims& d) {
+  int ld[8];
+  fwd_strides<T>(d, ld);
+  FwdLayout L;
+  size_t off = 0;
+  L.x = off;    off = align16(off + sizeof(float) * NW * ld[0]);
+  L.y = off;    off = align16(off + sizeof(T) * NW * ld[1]);
+  L.o = off;    off = align16(off + sizeof(T) * NW * ld[2]);
+  L.q = off;    off = align16(off + sizeof(T) * NW * ld[3]);
+  L.k = off;    off = align16(off + sizeof(T) * NW * ld[3]);
+  L.vt = off;   off = align16(off + sizeof(T) * d.hp * ld[4]);
+  L.s = off;    off = align16(off + sizeof(float) * NW * ld[5]);
+  L.p = off;    off = align16(off + sizeof(T) * NW * ld[6]);
+  L.rinv = off; off = align16(off + sizeof(float) * NW);
+  L.h = L.o;
+  const size_t h_end = align16(L.h + sizeof(T) * NW * ld[7]);
+  L.total = off > h_end ? off : h_end;
+  return L;
+}
+
+template <typename T>
+__device__ inline FwdSmem<T> fwd_smem(unsigned char* smem, const Dims& d,
+                                      const FwdLayout& L) {
+  int ld[8];
+  fwd_strides<T>(d, ld);
+  FwdSmem<T> s;
+  s.X = reinterpret_cast<float*>(smem + L.x);
+  s.Y = reinterpret_cast<T*>(smem + L.y);
+  s.O = reinterpret_cast<T*>(smem + L.o);
+  s.Q = reinterpret_cast<T*>(smem + L.q);
+  s.K = reinterpret_cast<T*>(smem + L.k);
+  s.Vt = reinterpret_cast<T*>(smem + L.vt);
+  s.S = reinterpret_cast<float*>(smem + L.s);
+  s.P = reinterpret_cast<T*>(smem + L.p);
+  s.rinv = reinterpret_cast<float*>(smem + L.rinv);
+  s.H = reinterpret_cast<T*>(smem + L.h);
+  s.ldx = ld[0]; s.ldy = ld[1]; s.ldo = ld[2]; s.ldq = ld[3];
+  s.ldvt = ld[4]; s.lds = ld[5]; s.ldp = ld[6]; s.ldh = ld[7];
+  return s;
+}
+
+// Per-token operands the backward's recompute writes to global memory,
+// rows in window order (CTA * 64 + local row), pads zero.
+template <typename T>
+struct Spill {
+  T* y;      // [M][ck]    LN1 output
+  T* qkv;    // [M][3 ca]  q|k|v blocks of (head, hp) columns
+  T* o;      // [M][ca]    attention output
+  T* y2;     // [M][ck]    LN2 output
+  T* u;      // [M][chp]   fc1 output
+  T* hact;   // [M][chp]   GELU(u)
+  float* mu1; float* rstd1; float* mu2; float* rstd2;   // smem [64] each
+};
+
+// Copy a [64][n] T block from shared memory to global rows.
+template <typename T>
+__device__ inline void store_rows(const T* src, int lds, T* dst, int ldd,
+                                  int n) {
+  for (int i = threadIdx.x; i < NW * n; i += THREADS) {
+    const int r = i / n, cc = i % n;
+    dst[static_cast<size_t>(r) * ldd + cc] = src[r * lds + cc];
+  }
+}
+
+// One Swin block over the 64 tokens of this CTA's window. x_row(r) is
+// the global row of local row r in x (and out); bias_at(h, r, c) the
+// additive attention bias between local rows r and c for head h.
+// Forward kernels (kRecompute false) write the block output to out.
+// The backward's recompute (kRecompute true) skips fc2, keeps x2 in
+// s.X, and writes the per-token operands and row statistics to sp.
+template <typename T, bool kRecompute, typename RowOf, typename BiasAt>
+__device__ inline void block_forward(const FwdWeights& wt, const Dims& d,
+                                     const FwdSmem<T>& s, const T* x,
+                                     T* out, RowOf x_row, BiasAt bias_at,
+                                     const Spill<T>& sp) {
+  const T* wqkv = static_cast<const T*>(wt.wqkv);
+  const T* bqkv = static_cast<const T*>(wt.bqkv);
+  const T* wproj = static_cast<const T*>(wt.wproj);
+  const T* w1 = static_cast<const T*>(wt.w1);
+  const T* bm1 = static_cast<const T*>(wt.bm1);
+  const T* w2 = static_cast<const T*>(wt.w2);
+  const int c = d.c, hp = d.hp;
+
+  for (int i = threadIdx.x; i < NW * c; i += THREADS) {
+    const int r = i / c, cc = i % c;
+    s.X[r * s.ldx + cc] = to_f32(x[x_row(r) * c + cc]);
+  }
+  __syncthreads();
+  layer_norm<T>(s.X, s.ldx, wt.g1, wt.b1, s.Y, s.ldy, d,
+                kRecompute ? sp.mu1 : nullptr,
+                kRecompute ? sp.rstd1 : nullptr);
+  __syncthreads();
+  if constexpr (kRecompute) store_rows(s.Y, s.ldy, sp.y, d.ck, d.ck);
+
+  for (int h = 0; h < d.heads; ++h) {
+    const T* bq = bqkv + h * 3 * hp;
+    gemm64<T>(s.Y, s.ldy, wqkv + static_cast<size_t>(h) * 3 * hp * d.ck,
+              d.ck, d.ck, 3 * hp,
+              [&](int r, int col, float v0, float v1) {
+                const float vs[2] = {v0, v1};
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                  const int cc = col + e;
+                  const T v = from_f32<T>(rnd<T>(vs[e]) + to_f32(bq[cc]));
+                  const int part = cc / hp, lane = cc % hp;
+                  if (part == 0) s.Q[r * s.ldq + lane] = v;
+                  else if (part == 1) s.K[r * s.ldq + lane] = v;
+                  else s.Vt[lane * s.ldvt + r] = v;
+                  if constexpr (kRecompute)
+                    sp.qkv[r * 3 * d.ca + (part * d.heads + h) * hp + lane] =
+                        v;
+                }
+              });
+    __syncthreads();
+    gemm64<T>(s.Q, s.ldq, s.K, s.ldq, hp, NW,
+              [&](int r, int col, float v0, float v1) {
+                s.S[r * s.lds + col] = v0 + bias_at(h, r, col);
+                s.S[r * s.lds + col + 1] = v1 + bias_at(h, r, col + 1);
+              });
+    __syncthreads();
+    {
+      const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+      for (int r = warp; r < NW; r += THREADS / 32) {
+        const float s0 = s.S[r * s.lds + lane];
+        const float s1 = s.S[r * s.lds + lane + 32];
+        const float m = warp_max(fmaxf(s0, s1));
+        const float e0 = expf(s0 - m), e1 = expf(s1 - m);
+        const float sum = warp_sum(e0 + e1);
+        s.P[r * s.ldp + lane] = from_f32<T>(e0);
+        s.P[r * s.ldp + lane + 32] = from_f32<T>(e1);
+        if (lane == 0) s.rinv[r] = 1.f / sum;
+      }
+    }
+    __syncthreads();
+    gemm64<T>(s.P, s.ldp, s.Vt, s.ldvt, NW, hp,
+              [&](int r, int col, float v0, float v1) {
+                s.O[r * s.ldo + h * hp + col] = from_f32<T>(v0 * s.rinv[r]);
+                s.O[r * s.ldo + h * hp + col + 1] =
+                    from_f32<T>(v1 * s.rinv[r]);
+              });
+    __syncthreads();
+  }
+  if constexpr (kRecompute) store_rows(s.O, s.ldo, sp.o, d.ca, d.ca);
+
+  // x2 = x + (O . Wproj + bproj), in place in X
+  gemm64<T>(s.O, s.ldo, wproj, d.ca, d.ca, d.cn,
+            [&](int r, int col, float v0, float v1) {
+              if (col < c) s.X[r * s.ldx + col] += v0 + wt.bproj[col];
+              if (col + 1 < c)
+                s.X[r * s.ldx + col + 1] += v1 + wt.bproj[col + 1];
+            });
+  __syncthreads();
+  layer_norm<T>(s.X, s.ldx, wt.g2, wt.b2, s.Y, s.ldy, d,
+                kRecompute ? sp.mu2 : nullptr,
+                kRecompute ? sp.rstd2 : nullptr);
+  __syncthreads();
+  if constexpr (kRecompute) {
+    store_rows(s.Y, s.ldy, sp.y2, d.ck, d.ck);
+    gemm64<T>(s.Y, s.ldy, w1, d.ck, d.ck, d.chp,
+              [&](int r, int col, float v0, float v1) {
+                const float vs[2] = {v0, v1};
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                  const float u =
+                      rnd<T>(rnd<T>(vs[e]) + to_f32(bm1[col + e]));
+                  sp.u[r * d.chp + col + e] = from_f32<T>(u);
+                  sp.hact[r * d.chp + col + e] = from_f32<T>(gelu<T>(u));
+                }
+              });
+    __syncthreads();
+    return;
+  } else {
+    gemm64<T>(s.Y, s.ldy, w1, d.ck, d.ck, d.chp,
+              [&](int r, int col, float v0, float v1) {
+                const float u0 = rnd<T>(rnd<T>(v0) + to_f32(bm1[col]));
+                const float u1 = rnd<T>(rnd<T>(v1) + to_f32(bm1[col + 1]));
+                s.H[r * s.ldh + col] = from_f32<T>(gelu<T>(u0));
+                s.H[r * s.ldh + col + 1] = from_f32<T>(gelu<T>(u1));
+              });
+    __syncthreads();
+    gemm64<T>(s.H, s.ldh, w2, d.chp, d.chp, d.cn,
+              [&](int r, int col, float v0, float v1) {
+                T* orow = out + x_row(r) * c;
+                if (col < c)
+                  orow[col] =
+                      from_f32<T>(s.X[r * s.ldx + col] + (v0 + wt.bm2[col]));
+                if (col + 1 < c)
+                  orow[col + 1] = from_f32<T>(s.X[r * s.ldx + col + 1] +
+                                              (v1 + wt.bm2[col + 1]));
+              });
+  }
+}
+
+// Dynamic shared memory above 48 KB must be opted into per kernel.
+template <typename Kern>
+inline cudaError_t allow_smem(Kern kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+}  // namespace swin

@@ -1,1 +1,2 @@
-"""Inference-time modes of the port (training is not ported yet)."""
+"""Training step, optimizer chain, schedules and state; inference-time
+test modes."""

@@ -1,0 +1,103 @@
+"""The train step (port of srcaco2_tpu/train/steps.py:make_train_step).
+
+One step: assemble the batch on the device from its draws, forward the
+model in training mode, the loss, the grads, the non-finite skip (a
+skipped step still passes zero grads through the optimizer chain, so the
+moments decay and the counts advance; only the parameters stay), the
+EMA, and the skip / corruption flags. JAX jits the step with donated
+state; the port runs it eagerly and updates the parameters and the EMA
+in place.
+"""
+from typing import Callable
+
+import torch
+
+from srcaco2_tpu_torch import constants
+from srcaco2_tpu_torch.data import pipeline as P
+from srcaco2_tpu_torch.losses.master import MasterLoss
+from srcaco2_tpu_torch.train.state import TrainState, all_finite, ema_update
+
+
+def net_input(net_type: str, batch: dict, netG: dict = None) -> torch.Tensor:
+    """Pre-upsampling nets consume the bicubic pre-upscale (SRCNN and
+    non-pyramid CSR-CNN); the others the LR patch."""
+    if net_type in constants.PRE_UPSAMPLED_INPUT_NETS:
+        return batch['l_to_h_img']
+    if net_type == constants.CSRCNN:
+        sub = (netG or {}).get('csrcnn_net_type', constants.NET_TYPE_UNET)
+        if sub != constants.NET_TYPE_PYRAMID:
+            return batch['l_to_h_img']
+    return batch['l_im']
+
+
+def compute_model_loss(net_type: str, master: MasterLoss, outputs: dict,
+                       batch: dict, params, epoch, elb_t):
+    """The loss of a model with one output. The curriculum and
+    progressive nets' per-level losses (intermediate outputs) are not
+    ported yet."""
+    if outputs.get('intermediate_outs') is not None:
+        raise NotImplementedError(
+            f'{net_type}: losses over intermediate outputs are not ported '
+            'yet (see ROADMAP.md)')
+    return master(outputs, batch, params, epoch, elb_t)
+
+
+def loss_and_grads(model, master: MasterLoss, net_type: str, params: dict,
+                   batch: dict, epoch, elb_t, netG: dict = None):
+    """(loss, holder, prediction, {name: grad}) of one forward and
+    backward in training mode; a parameter the loss does not reach gets
+    a zero grad."""
+    model.train()
+    x = net_input(net_type, batch, netG)
+    outputs = {'out': model(x)}
+    total, holder = compute_model_loss(net_type, master, outputs, batch,
+                                       params, epoch, elb_t)
+    names = list(params)
+    grads = torch.autograd.grad(total, [params[k] for k in names],
+                                allow_unused=True)
+    grads = {k: torch.zeros_like(params[k]) if g is None else g
+             for k, g in zip(names, grads)}
+    return total.detach(), holder, outputs['out'].detach(), grads
+
+
+def make_train_step(model, master: MasterLoss, tx, net_type: str,
+                    pipe_cfg: P.PipeConfig, e_decay: float = 0.0,
+                    steps_per_epoch: int = 1,
+                    netG: dict = None) -> Callable:
+    """The train step: (state, hr_u8, lr_u8, idxs, draws) -> (state,
+    loss holder, ok flag), where draws = pipeline.draw(gen, ...) are the
+    batch's patch origins and dihedral modes (JAX derives them from a
+    key inside the step). state.params must be the model's parameters;
+    the step updates them, the optimizer state and the EMA in place."""
+    P.check_ported(pipe_cfg)
+
+    def step_fn(state: TrainState, hr_u8, lr_u8, idxs, draws):
+        epoch = torch.div(state.step, steps_per_epoch,
+                          rounding_mode='floor')
+        batch = P.assemble(hr_u8, lr_u8, idxs, draws, pipe_cfg)
+        loss, holder, pred, grads = loss_and_grads(
+            model, master, net_type, state.params, batch, epoch,
+            state.elb_t, netG)
+        with torch.no_grad():
+            # non-finite loss or grads -> skip the update
+            ok = torch.isfinite(loss) & all_finite(grads)
+            safe = {k: torch.where(ok, g, torch.zeros_like(g))
+                    for k, g in grads.items()}
+            updates, state.opt_state = tx.update(safe, state.opt_state,
+                                                 state.params)
+            for k, p in state.params.items():
+                p.copy_(torch.where(ok, p + updates[k], p))
+            if e_decay > 0 and state.ema_params is not None:
+                new_ema = ema_update(state.ema_params, state.params,
+                                     e_decay)
+                for k, e in state.ema_params.items():
+                    e.copy_(new_ema[k])
+            corrupt = ~all_finite(state.params) | ~torch.isfinite(pred).all()
+            holder = {k: v.detach() for k, v in holder.items()}
+            holder['_skipped'] = (~ok).float()
+            holder['_corrupt'] = corrupt.float()
+            holder['_flags'] = holder['_skipped'] + 2.0 * holder['_corrupt']
+            state.step = state.step + 1
+        return state, holder, ok & ~corrupt
+
+    return step_fn

@@ -1,0 +1,308 @@
+"""The fused Swin block with its backward (srcaco2_tpu_torch/ops/swin_block.py,
+K1 + K2) against the JAX package: the plain PyTorch versions and the
+autograd Function against the Pallas kernel and its custom VJP run in
+interpret mode, and the CUDA kernels' per-window design (window index
+table, padded weight layouts, per-token workspace, reductions) emulated
+in PyTorch against the plain versions. The CUDA kernels themselves run
+only on the card (chip_smoke.py holds them against the plain versions
+there)."""
+import functools
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from srcaco2_tpu.ops.pallas import swin_block as jsb
+from srcaco2_tpu_torch.ops import swin_block as tsb
+
+# tests/test_swin_fused.py:19 widths
+B, H, W, C, NH, WS = 2, 8, 8, 24, 4, 4
+CH = 2 * C
+KEYS = tsb.BLOCK_KEYS
+DTYPES = {'f32': (jnp.float32, torch.float32),
+          'bf16': (jnp.bfloat16, torch.bfloat16)}
+# forward: f32 only sum order differs; bf16 rounds activations and
+# weights to ~3 significant digits
+FWD_TOL = {'f32': 2e-5, 'bf16': 2e-2}
+# grads: f32 max abs <= 1e-4 max|ref| + 1e-6; bf16 relative L2 per tensor
+GRAD_RTOL_F32, GRAD_L2_BF16 = 1e-4, 3e-2
+
+
+@pytest.fixture(autouse=True)
+def _f32_softmax(monkeypatch):
+    monkeypatch.setenv('SRCACO2_SWIN_F32_SOFTMAX', '1')
+
+
+def _params(seed, c=C, ch=CH):
+    r = np.random.default_rng(seed)
+
+    def g(*s):
+        return r.normal(0, 0.1, s).astype(np.float32)
+    return {
+        'ln1_weight': 1.0 + g(c), 'ln1_bias': g(c),
+        'qkv_kernel': g(c, 3 * c), 'qkv_bias': g(3 * c),
+        'proj_kernel': g(c, c), 'proj_bias': g(c),
+        'ln2_weight': 1.0 + g(c), 'ln2_bias': g(c),
+        'mlp1_kernel': g(c, ch), 'mlp1_bias': g(ch),
+        'mlp2_kernel': g(ch, c), 'mlp2_bias': g(c),
+    }
+
+
+def _jax_names(p):
+    return {k.replace('_weight', '_scale'): jnp.asarray(v)
+            for k, v in p.items()}
+
+
+def _inputs(seed, b=B, h=H, w=W, c=C, ws=WS, shift=0):
+    r = np.random.default_rng(seed)
+    x = r.normal(0, 1, (b, h * w, c)).astype(np.float32)
+    dout = r.normal(0, 1, (b, h * w, c)).astype(np.float32)
+    table = r.normal(0, 0.02, (1, (2 * ws - 1) ** 2, NH)).astype(np.float32)
+    bias = tsb.build_attn_bias(torch.from_numpy(table), h, w, ws,
+                               shifts=(shift,))[0]
+    return x, dout, bias.numpy()
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_vjp(cdt_name):
+    jdt = DTYPES[cdt_name][0]
+
+    def f(x, params, bias, dout):
+        out, vjp = jax.vjp(
+            lambda xx, pp, bb: jsb.fused_swin_block(
+                xx, pp, bb, heads=NH, interpret=True, compute_dtype=jdt),
+            x, params, bias)
+        return out, vjp(dout)
+    return jax.jit(f)
+
+
+def _close(name, got, ref, dt):
+    got = np.asarray(got, np.float32)
+    ref = np.asarray(ref, np.float32)
+    assert got.shape == ref.shape, name
+    if dt == 'f32':
+        lim = GRAD_RTOL_F32 * np.abs(ref).max() + 1e-6
+        assert np.abs(got - ref).max() <= lim, (name, np.abs(got - ref).max(),
+                                                lim)
+    else:
+        l2 = np.linalg.norm(got - ref) / max(np.linalg.norm(ref), 1e-30)
+        assert l2 <= GRAD_L2_BF16, (name, l2)
+
+
+@pytest.mark.parametrize('dt', sorted(DTYPES))
+@pytest.mark.parametrize('shift', [0, WS // 2])
+def test_plain_block_and_grads_match_jax_kernel(dt, shift):
+    """K1's and K2's plain versions, through the autograd Function on
+    CPU tensors, against fused_swin_block's forward and custom VJP in
+    interpret mode: the output, dx, the 12 weight grads and dbias."""
+    jdt, tdt = DTYPES[dt]
+    x, dout, bias = _inputs(3, shift=shift)
+    p = _params(4)
+    out_j, (dx_j, dp_j, db_j) = _jax_vjp(dt)(
+        jnp.asarray(x, jdt), _jax_names(p), jnp.asarray(bias),
+        jnp.asarray(dout, jdt))
+    xt = torch.from_numpy(x).to(tdt).requires_grad_()
+    pt = {k: torch.from_numpy(v).requires_grad_() for k, v in p.items()}
+    bt = torch.from_numpy(bias).requires_grad_()
+    before = (tsb.swin_block_fwd.launches, tsb.swin_block_bwd.launches)
+    out_t = tsb.fused_swin_block(xt, pt, bt, heads=NH,
+                                 window=(H, W, WS, shift),
+                                 compute_dtype=tdt)
+    out_t.backward(torch.from_numpy(dout).to(tdt))
+    # CPU tensors run the plain versions and launch nothing
+    assert (tsb.swin_block_fwd.launches,
+            tsb.swin_block_bwd.launches) == before
+    fwd_err = np.abs(out_t.detach().float().numpy()
+                     - np.asarray(out_j, np.float32)).max()
+    assert fwd_err <= FWD_TOL[dt], fwd_err
+    assert xt.grad.dtype == tdt
+    _close('dx', xt.grad.float(), dx_j, dt)
+    _close('dbias', bt.grad, db_j, dt)
+    for k in KEYS:
+        _close(k, pt[k].grad, dp_j[k.replace('_weight', '_scale')], dt)
+
+
+def _emulate_kernels(x, dout, bias, idx, pk, pb, heads, c, ch, cdt):
+    """What csrc/swin_block_fwd.cu and csrc/swin_block_bwd.cu compute, in
+    PyTorch: per 64-token window read through the window index table,
+    products `act @ W^T` on the packed, zero-padded layouts, the
+    window's 64x64 slice of the bias, the kernels' rounding points; the
+    weight grads as sums over every window of the per-token operands,
+    the bias grad as the windows' ds summed over patches. Returns
+    (out, dx, grads in the kernels' padded layout, dbias)."""
+    pd = tsb._pads(c, heads, ch)
+    hp, ck, ca, chp = pd.hp, pd.ck, heads * pd.hp, pd.chp
+    f = {k: v.float() for k, v in pk._asdict().items()}
+    fb = {k: v.float() for k, v in pb._asdict().items()}
+
+    def rnd(v):
+        return v.to(cdt).float()
+
+    def ln(z):
+        mu = z.mean(-1, keepdim=True)
+        rstd = torch.rsqrt(((z - mu) ** 2).mean(-1, keepdim=True)
+                           + tsb.LN_EPS)
+        return (z - mu) * rstd, rstd
+
+    def ln_bwd(dy, g_, xh, rstd):
+        dxh = dy * g_
+        return (dxh - dxh.mean(-1, keepdim=True)
+                - xh * (dxh * xh).mean(-1, keepdim=True)) * rstd
+
+    def pad(z, n):
+        return torch.nn.functional.pad(z, (0, n - z.shape[-1]))
+
+    out, dx = torch.empty_like(x), torch.empty_like(x)
+    gp = dict(dwqkv=torch.zeros(c + 1, 3 * ca), dwproj=torch.zeros(ca, c),
+              dw1=torch.zeros(c, ch), dw2=torch.zeros(ch, c),
+              dbm1=torch.zeros(chp), **{k: torch.zeros(c) for k in (
+                  'dg1', 'db1', 'dg2', 'db2', 'dbproj', 'dbm2')})
+    dbias = torch.zeros_like(bias)
+    for b in range(x.shape[0]):
+        for tok in idx.long():
+            xw = x[b, tok].float()
+            xh1, rstd1 = ln(xw)
+            y = pad(rnd(xh1 * f['g1'] + f['b1']), ck)
+            o = torch.zeros(64, ca)
+            qkv = torch.zeros(64, 3 * ca)
+            for h in range(heads):
+                z = rnd(rnd(y @ f['wqkv'][h].reshape(3 * hp, ck).T)
+                        + f['bqkv'][h].reshape(3 * hp))
+                q, k, v = z[:, :hp], z[:, hp:2 * hp], z[:, 2 * hp:]
+                for part, val in enumerate((q, k, v)):
+                    qkv[:, (part * heads + h) * hp:
+                        (part * heads + h + 1) * hp] = val
+                s = q @ k.T + bias[h][tok][:, tok]
+                e = torch.exp(s - s.amax(-1, keepdim=True))
+                o[:, h * hp:(h + 1) * hp] = rnd(
+                    (rnd(e) @ v) * (1.0 / e.sum(-1, keepdim=True)))
+            x2 = xw + ((o @ f['wproj'].T)[:, :c] + f['bproj'])
+            xh2, rstd2 = ln(x2)
+            y2 = pad(rnd(xh2 * f['g2'] + f['b2']), ck)
+            u = rnd(rnd(y2 @ f['w1'].T) + f['bm1'])
+            hact = tsb._gelu(u.to(cdt)).float()
+            out[b, tok] = (x2 + ((hact @ f['w2'].T)[:, :c]
+                                 + f['bm2'])).to(x.dtype)
+            # backward
+            g = pad(dout[b, tok].float(), ck)
+            th = tsb._gelu_tanh(u.to(cdt))
+            du = (g @ fb['w2_t'].T) * tsb._gelu_grad(u.to(cdt), th).float()
+            du_c = rnd(du)
+            dy2 = (du_c @ fb['w1_t'].T)[:, :c]
+            dx2 = g[:, :c] + ln_bwd(dy2, f['g2'], xh2, rstd2)
+            dx2_c = pad(rnd(dx2), ck)
+            do = rnd(dx2_c @ fb['wproj_t'].T)
+            dqkv = torch.zeros(64, 3 * ca)
+            for h in range(heads):
+                def blk(part):
+                    lo = (part * heads + h) * hp
+                    return slice(lo, lo + hp)
+                q, k, v = qkv[:, blk(0)], qkv[:, blk(1)], qkv[:, blk(2)]
+                doh = do[:, h * hp:(h + 1) * hp]
+                s = q @ k.T + bias[h][tok][:, tok]
+                e = torch.exp(s - s.amax(-1, keepdim=True))
+                pr = e * rnd(1.0 / e.sum(-1, keepdim=True))
+                dp = rnd(doh @ v.T)
+                dqkv[:, blk(2)] = rnd(rnd(pr).T @ doh)
+                rs = rnd((dp * pr).sum(-1, keepdim=True))
+                ds = pr * rnd(dp - rs)
+                dbias[h][tok[:, None], tok[None, :]] += ds
+                dqkv[:, blk(0)] = rnd(rnd(ds) @ k)
+                dqkv[:, blk(1)] = rnd(rnd(ds).T @ q)
+            dy = (dqkv @ fb['wqkv_t'].T)[:, :c]
+            dx[b, tok] = (dx2 + ln_bwd(dy, f['g1'], xh1, rstd1)).to(x.dtype)
+            ones = torch.ones(64, 1)
+            gp['dwqkv'] += torch.cat([y[:, :c], ones], 1).T @ dqkv
+            gp['dwproj'] += o.T @ dx2_c[:, :c]
+            gp['dw1'] += y2[:, :c].T @ du_c[:, :ch]
+            gp['dw2'] += hact[:, :ch].T @ g[:, :c]
+            gp['dbm2'] += g[:, :c].sum(0)
+            gp['dbm1'] += du.sum(0)
+            gp['dg2'] += (dy2 * xh2).sum(0)
+            gp['db2'] += dy2.sum(0)
+            gp['dbproj'] += dx2.sum(0)
+            gp['dg1'] += (dy * xh1).sum(0)
+            gp['db1'] += dy.sum(0)
+    gp['dbqkv'] = gp['dwqkv'][c]
+    gp['dwqkv'] = gp['dwqkv'][:c]
+    return out, dx, gp, dbias
+
+
+@pytest.mark.parametrize('h,w,shift', [(16, 16, 0), (16, 16, 4),
+                                       (8, 16, 4)])
+def test_kernel_window_design_matches_plain(h, w, shift):
+    """The kernels' design (64-token windows read through the window
+    index table with the cyclic shift, hd 10 -> 16 / C 40 -> 48 / MLP
+    80 zero pads, transposed weights, per-token operands summed into the
+    weight grads, the windows' ds summed into dbias) computes the plain
+    versions' function in f32; dbias is exactly zero off the window
+    blocks."""
+    c, ch = 40, 80
+    x, dout, bias = _inputs(5, b=2, h=h, w=w, c=c, ws=tsb.WINDOW,
+                            shift=shift)
+    x, dout, bias = map(torch.from_numpy, (x, dout, bias))
+    p = {k: torch.from_numpy(v) for k, v in _params(6, c, ch).items()}
+    cdt = torch.float32
+    idx = torch.from_numpy(tsb.window_index(h, w, tsb.WINDOW, shift))
+    out, dx, gp, dbias = _emulate_kernels(
+        x, dout, bias, idx, tsb.pack_block_params(p, NH, cdt),
+        tsb.pack_block_bwd_params(p, NH, cdt), NH, c, ch, cdt)
+    grads = tsb.unpack_block_grads(gp, NH, c, ch)
+    ref = tsb.swin_block_ref(x, p, bias, heads=NH, compute_dtype=cdt)
+    dx_r, g_r, db_r = tsb.swin_block_bwd_ref(x, dout, p, bias, heads=NH,
+                                             compute_dtype=cdt)
+    for name, a, b in [('out', out, ref), ('dx', dx, dx_r),
+                       ('dbias', dbias, db_r)] + [
+            (k, grads[k], g_r[k]) for k in KEYS]:
+        # 1e-5 of each tensor's scale: the weight grads sum ~500 tokens
+        err = (a - b).abs().max().item()
+        assert err <= 1e-5 * max(1.0, b.abs().max().item()), (name, err)
+    mask, _ = tsb.full_attn_mask_and_index(h, w, tsb.WINDOW, shift)
+    assert (dbias[:, torch.from_numpy(mask != 0)] == 0).all()
+
+
+def test_window_index_is_the_bias_window_partition():
+    """Every window of the index table is one block of the bias mask:
+    tokens of a window may attend to each other (up to the shift's
+    regions), tokens of different windows never do."""
+    for h, w, shift in [(16, 16, 0), (16, 16, 4), (8, 16, 4), (8, 8, 0)]:
+        idx = tsb.window_index(h, w, tsb.WINDOW, shift)
+        mask, _ = tsb.full_attn_mask_and_index(h, w, tsb.WINDOW, shift)
+        assert sorted(idx.ravel()) == list(range(h * w))
+        win = np.empty(h * w, int)
+        for wi, row in enumerate(idx):
+            win[row] = wi
+        same = win[:, None] == win[None, :]
+        assert (mask[~same] != 0).all()
+        assert (np.diag(mask) == 0).all()
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take():
+    """On a CUDA tensor the wrappers launch or raise; the checks that
+    need no card run here through meta tensors."""
+    x = torch.empty(2, 256, C, device='meta')
+    p = {k: torch.from_numpy(v) for k, v in _params(0).items()}
+    pk = tsb.pack_block_params(p, NH, torch.float32)
+    bias = torch.empty(NH, 256, 256)
+    idx = torch.zeros(4, 64, dtype=torch.int32)
+    with pytest.raises(ValueError, match='device'):
+        tsb.swin_block_fwd(x, bias, idx, pk, heads=NH,
+                           compute_dtype=torch.float32)
+    with pytest.raises(ValueError, match='window side'):
+        tsb._window_table((16, 16, 4, 0), 256, 'cpu')
+
+
+def test_build_target_hashes_the_headers(tmp_path, monkeypatch):
+    """A kernel library's name changes with any csrc/ header, so an
+    edited header never reuses a stale build."""
+    from srcaco2_tpu_torch.ops import build
+    src, hdr = tmp_path / 'k.cu', tmp_path / 'common.cuh'
+    src.write_text('#include "common.cuh"\n')
+    hdr.write_text('// a\n')
+    monkeypatch.setattr(build, 'CSRC', tmp_path)
+    first = build._target(src)
+    assert first.name.startswith('k-') and build._target(src) == first
+    hdr.write_text('// b\n')
+    assert build._target(src) != first

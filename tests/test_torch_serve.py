@@ -94,8 +94,8 @@ def _port_sources():
 
 
 def test_port_names_nothing_of_jax_or_the_jax_package():
-    pat = re.compile(r'^\s*(import|from)\s+(jax|flax|orbax|srcaco2_tpu)'
-                     r'(\.|\s|$)', re.M)
+    pat = re.compile(r'^\s*(import|from)\s+(jax|flax|optax|orbax|'
+                     r'srcaco2_tpu)(\.|\s|$)', re.M)
     hits = [f'{p.relative_to(ROOT)}: {m.group(0).strip()}'
             for p in _port_sources() for m in pat.finditer(p.read_text())]
     assert not hits, hits
@@ -103,10 +103,10 @@ def test_port_names_nothing_of_jax_or_the_jax_package():
 
 def test_port_imports_without_jax():
     """Every module of the port, and chip_smoke, imports with jax, flax,
-    orbax and srcaco2_tpu made unimportable."""
+    optax, orbax and srcaco2_tpu made unimportable."""
     code = (
         'import sys, importlib, pkgutil\n'
-        'for m in ("jax", "flax", "orbax", "srcaco2_tpu"):\n'
+        'for m in ("jax", "flax", "optax", "orbax", "srcaco2_tpu"):\n'
         '    sys.modules[m] = None\n'
         'import srcaco2_tpu_torch as p\n'
         'for info in pkgutil.walk_packages(p.__path__, p.__name__ + "."):\n'
