@@ -21,6 +21,11 @@ non-zero:
                 bench.py's training shapes, shifts 0 and 4, f32 and bf16
   kernel_time_train   median ms of K1 and K2 and of their plain versions
                 beside their bounds
+  kernel_check_pair   K3 (pair forward) and K4 (pair backward: dx, 24
+                weight grads, both dbias) against their plain versions at
+                the same shapes (blocks with shifts 0 and 4), f32 and bf16
+  kernel_time_pair    median ms of K3 and K4 and of their plain versions
+                beside their bounds
   serve         the x8 SwinIR flagship (bf16, random seeded weights, full
                 depth) served through SRServer: 3 requests, one with a
                 ragged tail; launch counts of the main path; images/s;
@@ -29,12 +34,19 @@ non-zero:
   train_compare one step's loss and grads through the kernels against the
                 plain versions (batch 16, bf16 and f32) from the flagship's
                 seeded initial weights
+  train_compare_pair  the same with every stack's blocks run as pairs
+                (K3 + K4 against their plain versions)
   train         the flagship train step (bf16 over f32 params, random
                 seeded weights, full depth) at batch 128 of 16x16 LR
                 patches: warm-up, 10 timed steps, launch counts (36 K1, 36
                 K2, 0 K5 per step), ms/step, patches/s, peak memory, loss,
                 skip / corrupt flags
   train_profile device time of one train step by kernel (torch.profiler)
+  train_pair    the train step with every stack's `pair` on (what
+                SRCACO2_SWIN_PAIR=1 selects): warm-up, 10 timed steps,
+                launch counts (18 K3, 18 K4, 0 K1, K2 or K5 per step),
+                ms/step, patches/s, peak memory, loss, flags
+  train_pair_profile  device time of one pair step by kernel
   kernels       the kernels line (one JSON object)
 followed by the nvidia-smi line and, last, the {"ok": true, ...} line.
 Imports nothing of JAX or of the JAX package.
@@ -68,6 +80,11 @@ TOL = {
 # and the MLP at the model widths, attention inside its 64-token window
 FWD_FLOPS_PER_TOKEN = (2 * (3 * C * C + C * C + 2 * C * CH)
                        + 2 * 2 * WS * WS * C)
+# ... and through a block backward from x: the forward without fc2
+# (recomputed: the kernel gets x, not the intermediates), the dx chain,
+# the weight products and the windowed attention backward
+BWD_FLOPS_PER_TOKEN = (2 * (3 * C * C + C * C + C * CH) + 2 * 2 * WS * WS * C
+                       + 2 * (4 * C * CH + 8 * C * C) + 2 * 4 * WS * WS * C)
 # training step (bench.py:77-126): batch 128 of 16x16 LR patches (h_size
 # 128 at x8), T = 256 tokens per patch; 256 synthetic 512^2 HR images
 TRAIN_B, PATCH, H_SIZE, N_IMG = 128, 16, 128, 256
@@ -180,6 +197,36 @@ def _rel_l2(a, b):
                  .clamp_min(1e-30))
 
 
+def check_tensors(pairs, dtype, elementwise_out=False):
+    """{name: errors and 'ok'} of each (kernel, plain) tensor pair under
+    TRAIN_TOL[dtype]: f32 outputs ('out') within out_atol and every
+    other tensor within grad_rtol max|plain|; bf16 within rel_l2, with
+    elementwise_out also the output within K5's elementwise rule."""
+    import torch
+    errs = {}
+    for k, (a, b) in pairs.items():
+        diff = (a.float() - b.float()).abs()
+        e = dict(max_abs=float(diff.max()),
+                 ref_max=float(b.float().abs().max()),
+                 rel_l2=_rel_l2(a, b),
+                 finite=bool(torch.isfinite(a.float()).all()))
+        tol = TRAIN_TOL[dtype]
+        if dtype == 'f32':
+            lim = tol['out_atol'] if k == 'out' else \
+                tol['grad_rtol'] * e['ref_max']
+            e['ok'] = e['max_abs'] <= lim
+        else:
+            e['ok'] = e['rel_l2'] <= tol['rel_l2']
+            if k == 'out' and elementwise_out:
+                e['n_outside'] = int((diff > TOL['bf16']['atol']
+                                      + TOL['bf16']['rtol']
+                                      * b.float().abs()).sum())
+                e['ok'] = e['ok'] and e['n_outside'] == 0
+        e['ok'] = e['ok'] and e['finite']
+        errs[k] = e
+    return errs
+
+
 def kernel_check_train(dev, gen):
     """K1 and K2 (dx, the 12 weight grads, dbias) against their plain
     versions at bench.py's shapes, shifts 0 and ws/2, f32 and bf16.
@@ -210,27 +257,7 @@ def kernel_check_train(dev, gen):
             pairs = {'out': (out_k, out_r), 'dx': (dx_k, dx_r),
                      'dbias': (db_k, db_r),
                      **{k: (g_k[k], g_r[k]) for k in sb.BLOCK_KEYS}}
-            errs = {}
-            for k, (a, b) in pairs.items():
-                diff = (a.float() - b.float()).abs()
-                e = dict(max_abs=float(diff.max()),
-                         ref_max=float(b.float().abs().max()),
-                         rel_l2=_rel_l2(a, b),
-                         finite=bool(torch.isfinite(a.float()).all()))
-                tol = TRAIN_TOL[name]
-                if name == 'f32':
-                    lim = tol['out_atol'] if k == 'out' else \
-                        tol['grad_rtol'] * e['ref_max']
-                    e['ok'] = e['max_abs'] <= lim
-                else:
-                    e['ok'] = e['rel_l2'] <= tol['rel_l2']
-                    if k == 'out':
-                        e['n_outside'] = int((diff > TOL['bf16']['atol']
-                                              + TOL['bf16']['rtol']
-                                              * b.float().abs()).sum())
-                        e['ok'] = e['ok'] and e['n_outside'] == 0
-                e['ok'] = e['ok'] and e['finite']
-                errs[k] = e
+            errs = check_tensors(pairs, name, elementwise_out=True)
             zero_off = bool((db_k[off_window] == 0).all())
             rec = dict(shift=shift, dtype=name, dbias_zero_off_window=zero_off,
                        all_ok=all(e['ok'] for e in errs.values()) and zero_off,
@@ -241,24 +268,23 @@ def kernel_check_train(dev, gen):
     return recs, ok
 
 
+def bound(flops, nbytes):
+    """The least time of `flops` matrix-product operations and `nbytes`
+    bytes: the larger of the two over the bf16 peak and the memory
+    rate, and which of them bounds it."""
+    t_ops = flops / PEAK_BF16_FLOPS
+    t_bytes = nbytes / PEAK_BYTES
+    return dict(bound_ms=max(t_ops, t_bytes) * 1e3,
+                bound_by='operations' if t_ops >= t_bytes else 'bytes',
+                flops=flops, bytes=nbytes)
+
+
 def train_bounds(tokens, nbytes_fwd, nbytes_bwd):
-    """(bound ms, what bounds it) of K1 and K2 over `tokens` tokens:
-    matrix-product FLOPs of the windowed work (64-token windows, model
-    widths) over the bf16 peak against bytes over the memory rate. K2's
-    work is the forward without fc2 (recomputed: the kernel gets x, not
-    the intermediates), the dx chain and the weight products."""
-    n = WS * WS
-    bwd = (2 * (3 * C * C + C * C + C * CH) + 2 * 2 * n * C
-           + 2 * (4 * C * CH + 8 * C * C) + 2 * 4 * n * C)
-    out = {}
-    for name, per_tok, nb in (('fwd', FWD_FLOPS_PER_TOKEN, nbytes_fwd),
-                              ('bwd', bwd, nbytes_bwd)):
-        t_ops = tokens * per_tok / PEAK_BF16_FLOPS
-        t_bytes = nb / PEAK_BYTES
-        out[name] = dict(bound_ms=max(t_ops, t_bytes) * 1e3,
-                         bound_by='operations' if t_ops >= t_bytes
-                         else 'bytes', flops=tokens * per_tok, bytes=nb)
-    return out
+    """Bounds of K1 and K2 over `tokens` tokens: matrix-product FLOPs of
+    the windowed work (64-token windows, model widths) against bytes.
+    K2's work is BWD_FLOPS_PER_TOKEN's."""
+    return dict(fwd=bound(tokens * FWD_FLOPS_PER_TOKEN, nbytes_fwd),
+                bwd=bound(tokens * BWD_FLOPS_PER_TOKEN, nbytes_bwd))
 
 
 def kernel_time_train(dev, gen):
@@ -300,6 +326,146 @@ def kernel_time_train(dev, gen):
         shape=list(xd.shape), dtype='bf16', shift=shift)
 
 
+def pair_inputs(dev, gen):
+    """Seeded inputs of one block pair at bench.py's shapes: x and dout
+    as train_block_inputs makes them, block A's weights and bias (shift
+    0), block B's (shift ws/2)."""
+    x, params_a, bias_a, dout = train_block_inputs(dev, gen, 0)
+    _, params_b, bias_b, _ = train_block_inputs(dev, gen, WS // 2)
+    return x, dout, params_a, bias_a, params_b, bias_b
+
+
+def pair_packs(params_a, params_b, dt):
+    from srcaco2_tpu_torch.ops import swin_block as sb
+    return ([sb.pack_block_params(p, HEADS, dt) for p in (params_a, params_b)],
+            [sb.pack_block_bwd_params(p, HEADS, dt)
+             for p in (params_a, params_b)])
+
+
+def kernel_check_pair(dev, gen):
+    """K3 and K4 (dx, both blocks' 12 weight grads and dbias) against
+    their plain versions at bench.py's shapes, f32 and bf16, under
+    TRAIN_TOL's rules. Also: each dbias is exactly zero off its window
+    blocks; and in bf16 the kernels' output and dx are closer to the
+    plain pair than to two chained plain blocks (which round A's output
+    and B's dx to bf16 and round the softmax backward as K2 does), so
+    the kernels keep the pair's f32 intermediates."""
+    import torch
+    from srcaco2_tpu_torch.ops import swin_block as sb
+    x, dout, pa, ba, pb, bb = pair_inputs(dev, gen)
+    idx = [sb._window_index_on(PATCH, PATCH, WS, s, str(dev))
+           for s in (0, WS // 2)]
+    off = [(sb._mask_and_index_on(PATCH, PATCH, WS, s, str(dev))[0] != 0)
+           [None].expand(HEADS, -1, -1) for s in (0, WS // 2)]
+    recs, ok = [], True
+    for name, dt in (('f32', torch.float32), ('bf16', torch.bfloat16)):
+        xd, dd = x.to(dt), dout.to(dt)
+        (pk_a, pk_b), (pw_a, pw_b) = pair_packs(pa, pb, dt)
+        out_k = sb.swin_block_pair_fwd(xd, ba, idx[0], pk_a, bb, idx[1],
+                                       pk_b, heads=HEADS, compute_dtype=dt)
+        dx_k, gpa, dba_k, gpb, dbb_k = sb.swin_block_pair_bwd(
+            xd, dd, ba, idx[0], pk_a, pw_a, bb, idx[1], pk_b, pw_b,
+            heads=HEADS, compute_dtype=dt, ch=CH)
+        ga_k = sb.unpack_block_grads(gpa, HEADS, C, CH)
+        gb_k = sb.unpack_block_grads(gpb, HEADS, C, CH)
+        torch.cuda.synchronize()
+        out_r = sb.swin_block_pair_ref(xd, pa, ba, pb, bb, heads=HEADS,
+                                       compute_dtype=dt)
+        dx_r, ga_r, dba_r, gb_r, dbb_r = sb.swin_block_pair_bwd_ref(
+            xd, dd, pa, ba, pb, bb, heads=HEADS, compute_dtype=dt)
+        pairs = {'out': (out_k, out_r), 'dx': (dx_k, dx_r),
+                 'dbias_a': (dba_k, dba_r), 'dbias_b': (dbb_k, dbb_r),
+                 **{f'{k}_a': (ga_k[k], ga_r[k]) for k in sb.BLOCK_KEYS},
+                 **{f'{k}_b': (gb_k[k], gb_r[k]) for k in sb.BLOCK_KEYS}}
+        errs = check_tensors(pairs, name)
+        zero_off = bool((dba_k[off[0]] == 0).all()
+                        and (dbb_k[off[1]] == 0).all())
+        rec = dict(dtype=name, dbias_zero_off_window=zero_off,
+                   all_ok=all(e['ok'] for e in errs.values()) and zero_off,
+                   worst_rel_l2=max(errs, key=lambda k: errs[k]['rel_l2']),
+                   errs=errs, tol=TRAIN_TOL[name])
+        if name == 'bf16':
+            mid = sb.swin_block_ref(xd, pa, ba, heads=HEADS, compute_dtype=dt)
+            out_c = sb.swin_block_ref(mid, pb, bb, heads=HEADS,
+                                      compute_dtype=dt)
+            dmid, _, _ = sb.swin_block_bwd_ref(mid, dd, pb, bb, heads=HEADS,
+                                               compute_dtype=dt)
+            dx_c, _, _ = sb.swin_block_bwd_ref(xd, dmid, pa, ba, heads=HEADS,
+                                               compute_dtype=dt)
+            rec['vs_chain'] = {k: dict(kernel_vs_pair=_rel_l2(a, r),
+                                       kernel_vs_chain=_rel_l2(a, ch),
+                                       pair_vs_chain=_rel_l2(r, ch))
+                               for k, a, r, ch in (('out', out_k, out_r, out_c),
+                                                   ('dx', dx_k, dx_r, dx_c))}
+            rec['closer_to_pair'] = all(
+                v['kernel_vs_pair'] < v['kernel_vs_chain']
+                for v in rec['vs_chain'].values())
+            rec['all_ok'] = rec['all_ok'] and rec['closer_to_pair']
+            # the noise of another sum order: the plain pair on the CPU
+            # against the plain pair on the card, first 8 patches
+            cpu = [t[:8].cpu() for t in (xd, dd)]
+            cpu_p = [{k: v.cpu() for k, v in p.items()} for p in (pa, pb)]
+            out_cpu = sb.swin_block_pair_ref(cpu[0], cpu_p[0], ba.cpu(),
+                                             cpu_p[1], bb.cpu(), heads=HEADS,
+                                             compute_dtype=dt)
+            dx_cpu = sb.swin_block_pair_bwd_ref(
+                cpu[0], cpu[1], cpu_p[0], ba.cpu(), cpu_p[1], bb.cpu(),
+                heads=HEADS, compute_dtype=dt)[0]
+            rec['plain_card_vs_cpu_8_patches'] = dict(
+                out=_rel_l2(out_r[:8].cpu(), out_cpu),
+                dx=_rel_l2(dx_r[:8].cpu(), dx_cpu))
+            rec['kernel_vs_plain_8_patches'] = dict(
+                out=_rel_l2(out_k[:8], out_r[:8]),
+                dx=_rel_l2(dx_k[:8], dx_r[:8]))
+            del mid, out_c, dmid, dx_c
+        recs.append(rec)
+        ok = ok and rec['all_ok']
+        del out_k, dx_k, gpa, gpb, out_r, dx_r, ga_r, gb_r, pairs
+    return recs, ok
+
+
+def kernel_time_pair(dev, gen):
+    """Median ms of K3 and K4 and of their plain versions (bf16,
+    bench.py's shapes), beside their bounds: K3 does two block forwards;
+    K4 two block backwards as K2 counts them plus A's fc2, whose output
+    B's recompute needs."""
+    import torch
+    from srcaco2_tpu_torch.ops import swin_block as sb
+    dt = torch.bfloat16
+    x, dout, pa, ba, pb, bb = pair_inputs(dev, gen)
+    xd, dd = x.to(dt), dout.to(dt)
+    idx = [sb._window_index_on(PATCH, PATCH, WS, s, str(dev))
+           for s in (0, WS // 2)]
+    (pk_a, pk_b), (pw_a, pw_b) = pair_packs(pa, pb, dt)
+    fwd_ms = cuda_ms(lambda: sb.swin_block_pair_fwd(
+        xd, ba, idx[0], pk_a, bb, idx[1], pk_b, heads=HEADS,
+        compute_dtype=dt))
+    bwd_ms = cuda_ms(lambda: sb.swin_block_pair_bwd(
+        xd, dd, ba, idx[0], pk_a, pw_a, bb, idx[1], pk_b, pw_b, heads=HEADS,
+        compute_dtype=dt, ch=CH))
+    fwd_plain = cuda_ms(lambda: sb.swin_block_pair_ref(
+        xd, pa, ba, pb, bb, heads=HEADS, compute_dtype=dt), reps=3, per=3)
+    bwd_plain = cuda_ms(lambda: sb.swin_block_pair_bwd_ref(
+        xd, dd, pa, ba, pb, bb, heads=HEADS, compute_dtype=dt),
+        reps=3, per=3)
+    tokens = xd.shape[0] * xd.shape[1]
+    act = xd.numel() * xd.element_size()
+    nb_bias = ba.numel() * 4
+    wbytes = sum(t.numel() * t.element_size() for t in (*pk_a, *pk_b))
+    wbytes_bwd = sum(t.numel() * t.element_size() for t in (*pw_a, *pw_b))
+    grads = 2 * sum(p.numel() for p in pa.values()) * 4
+    fwd = bound(2 * tokens * FWD_FLOPS_PER_TOKEN,
+                2 * act + 2 * nb_bias + wbytes)
+    bwd = bound(tokens * (2 * BWD_FLOPS_PER_TOKEN + 2 * CH * C),
+                3 * act + 4 * nb_bias + wbytes + wbytes_bwd + grads)
+    return dict(
+        fwd=dict(kernel='swin_block_pair_fwd', ms=fwd_ms, plain_ms=fwd_plain,
+                 **fwd, tflops=fwd['flops'] / fwd_ms / 1e9),
+        bwd=dict(kernel='swin_block_pair_bwd', ms=bwd_ms, plain_ms=bwd_plain,
+                 **bwd, tflops=bwd['flops'] / bwd_ms / 1e9),
+        shape=list(xd.shape), dtype='bf16', shifts=[0, WS // 2])
+
+
 def profile_device(fn, wall_ms):
     """Device time of one call of fn by device activity (kernels and
     copies, torch.profiler), and the device's busy share of the call's
@@ -332,7 +498,8 @@ def smem_bytes(build):
     the kernels' own layout code computes it."""
     import ctypes
     out = {}
-    for stem in ('swin_block_grouped', 'swin_block_fwd', 'swin_block_bwd'):
+    for stem in ('swin_block_grouped', 'swin_block_fwd', 'swin_block_bwd',
+                 'swin_block_pair_fwd', 'swin_block_pair_bwd'):
         fn = getattr(build.library(stem), f'{stem}_smem')
         fn.argtypes = [ctypes.c_int] * 4
         fn.restype = ctypes.c_longlong
@@ -393,13 +560,34 @@ def train_setup(dev):
                 cfg=cfg, master=master, args=args)
 
 
-def train_phase(ctx, smi, steps=10):
-    """The train step at batch TRAIN_B: one warm-up step, then `steps`
-    timed steps with the launch counts read around them."""
+def block_stacks(model, pair=None):
+    """The model's FusedBlockStacks, with `pair` set on each if given."""
+    from srcaco2_tpu_torch.models.swin_fused import FusedBlockStack
+    stacks = [m for m in model.modules() if isinstance(m, FusedBlockStack)]
+    if pair is not None:
+        for m in stacks:
+            m.pair = pair
+    return stacks
+
+
+def reset_launches():
+    from srcaco2_tpu_torch.ops import swin_block as sb
+    for fn in (sb.swin_block_fwd, sb.swin_block_bwd,
+               sb.swin_block_pair_fwd, sb.swin_block_pair_bwd,
+               sb.fused_swin_block_grouped):
+        fn.launches = 0
+
+
+def train_phase(ctx, smi, steps=10, pair=False):
+    """The train step at batch TRAIN_B, every stack's blocks run one by
+    one (K1 + K2) or, with `pair`, as pairs (K3 + K4): one warm-up
+    step, then `steps` timed steps with the launch counts read around
+    them."""
     import torch
     from srcaco2_tpu_torch.ops import swin_block as sb
     step, state, cfg = ctx['step'], ctx['state'], ctx['cfg']
     hr, lr, gen, model = ctx['hr'], ctx['lr'], ctx['gen'], ctx['model']
+    stacks = block_stacks(model, pair)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state, holder, ok = step(state, hr, lr, *step_inputs(gen, cfg, TRAIN_B))
@@ -407,8 +595,7 @@ def train_phase(ctx, smi, steps=10):
     warm_s = time.perf_counter() - t0
     inputs = [step_inputs(gen, cfg, TRAIN_B) for _ in range(steps)]
     torch.cuda.reset_peak_memory_stats()
-    sb.swin_block_fwd.launches = sb.swin_block_bwd.launches = 0
-    sb.fused_swin_block_grouped.launches = 0
+    reset_launches()
     flags = torch.zeros((), device=hr.device)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -419,12 +606,14 @@ def train_phase(ctx, smi, steps=10):
     dt = time.perf_counter() - t0
     launches = dict(fwd=sb.swin_block_fwd.launches,
                     bwd=sb.swin_block_bwd.launches,
+                    pair_fwd=sb.swin_block_pair_fwd.launches,
+                    pair_bwd=sb.swin_block_pair_bwd.launches,
                     grouped=sb.fused_swin_block_grouped.launches)
-    n_blocks = sum(m.depth for m in model.modules()
-                   if type(m).__name__ == 'FusedBlockStack')
+    n_blocks = sum(m.depth for m in stacks)
     rec = dict(
         model='SwinIR x8 pixelshuffledirect C=180 6x6 heads 6 ws 8, bf16 '
         'compute over f32 params, random weights (seed 0), model.train()',
+        blocks='pairs (K3 + K4)' if pair else 'one by one (K1 + K2)',
         loss_terms='l2 + 5 neg-SSIM(19)', optimizer='Adam lr 2e-4 wd 1e-4',
         batch=TRAIN_B, h_size=H_SIZE, lr_patch=[PATCH, PATCH],
         steps=steps, warmup_s=warm_s, ms_per_step=1e3 * dt / steps,
@@ -436,28 +625,33 @@ def train_phase(ctx, smi, steps=10):
         blocks_per_step=n_blocks, launches=launches,
         launches_per_step={k: v / steps for k, v in launches.items()},
         nvidia_smi=smi)
+    per_block = 0 if pair else n_blocks * steps
+    per_pair = n_blocks // 2 * steps if pair else 0
     ok = (rec['loss_finite'] and rec['flags_sum'] == 0 and n_blocks == 36
-          and launches['fwd'] == n_blocks * steps
-          and launches['bwd'] == n_blocks * steps
+          and launches['fwd'] == per_block
+          and launches['bwd'] == per_block
+          and launches['pair_fwd'] == per_pair
+          and launches['pair_bwd'] == per_pair
           and launches['grouped'] == 0)
     return rec, ok
 
 
-def compare_paths(dev, ctx, n=16):
+def compare_paths(dev, ctx, n=16, pair=False):
     """One step's loss and grads through the kernels and through the
-    plain versions (every stack's fused block swapped), from the same
-    weights and batch of n patches, in bf16 (the flagship) and in f32
-    (the same weights with amp off)."""
+    plain versions (every stack's fused block, or with `pair` its fused
+    pair, swapped), from the same weights and batch of n patches, in
+    bf16 (the flagship) and in f32 (the same weights with amp off)."""
     import functools
     import torch
     from srcaco2_tpu_torch.data import pipeline as P
     from srcaco2_tpu_torch.models.registry import define_g
-    from srcaco2_tpu_torch.models.swin_fused import FusedBlockStack
     from srcaco2_tpu_torch.ops import swin_block as sb
     from srcaco2_tpu_torch.train.steps import loss_and_grads
     idxs, draws = step_inputs(ctx['gen'], ctx['cfg'], n)
     batch = P.assemble(ctx['hr'], ctx['lr'], idxs, draws, ctx['cfg'])
-    plain = functools.partial(sb.fused_swin_block, plain=True)
+    attr = 'pair_op' if pair else 'fused_op'
+    kernel_op = sb.fused_swin_block_pair if pair else sb.fused_swin_block
+    plain = functools.partial(kernel_op, plain=True)
     out = {}
     f32_model = define_g({**ctx['args'], 'amp': False}, dev)
     f32_model.load_state_dict(ctx['model'].state_dict())
@@ -465,19 +659,17 @@ def compare_paths(dev, ctx, n=16):
     for name, model in (('bf16', ctx['model']), ('f32', f32_model)):
         torch.backends.cudnn.allow_tf32 = name != 'f32'
         params = dict(model.named_parameters())
-        stacks = [m for m in model.modules()
-                  if isinstance(m, FusedBlockStack)]
+        stacks = block_stacks(model, pair)
         runs = {}
         for path in ('kernel', 'plain'):
             for m in stacks:
-                m.fused_op = plain if path == 'plain' else \
-                    sb.fused_swin_block
+                setattr(m, attr, plain if path == 'plain' else kernel_op)
             loss, _, _, grads = loss_and_grads(model, ctx['master'],
                                                'SwinIR', params, batch, 0,
                                                1.0)
             runs[path] = (float(loss), grads)
         for m in stacks:
-            m.fused_op = sb.fused_swin_block
+            setattr(m, attr, kernel_op)
         (lk, gk), (lp, gp) = runs['kernel'], runs['plain']
         rel = {k: _rel_l2(gk[k], gp[k]) for k in gk}
         worst = max(rel, key=rel.get)
@@ -493,7 +685,8 @@ def compare_paths(dev, ctx, n=16):
                            and out[name]['grads_finite'])
     torch.backends.cudnn.allow_tf32 = allow
     del f32_model
-    return dict(batch=n, **out), all(v['ok'] for v in out.values())
+    return (dict(batch=n, blocks='pairs' if pair else 'one by one', **out),
+            all(v['ok'] for v in out.values()))
 
 
 def flagship_args():
@@ -588,6 +781,13 @@ def main() -> int:
         return 1
     train_times = emit('kernel_time_train', **kernel_time_train(dev, gen),
                        library_ms=None, nvidia_smi=smi)
+    pair_checks, ok = kernel_check_pair(dev, gen)
+    emit('kernel_check_pair', checks=pair_checks, nvidia_smi=smi)
+    if not ok:
+        print('chip_smoke: kernel_check_pair failed', file=sys.stderr)
+        return 1
+    pair_times = emit('kernel_time_pair', **kernel_time_pair(dev, gen),
+                      library_ms=None, nvidia_smi=smi)
 
     args = flagship_args()
     state = define_g(args, dev, seed=0).state_dict()
@@ -683,10 +883,16 @@ def main() -> int:
     # the paths are compared from the seeded initial weights, then the
     # same state trains
     ctx = train_setup(dev)
+    block_stacks(ctx['model'], pair=False)
     compare, ok = compare_paths(dev, ctx)
     compare = emit('train_compare', **compare, nvidia_smi=smi)
     if not ok:
         print('chip_smoke: train_compare failed', file=sys.stderr)
+        return 1
+    compare_pair, ok = compare_paths(dev, ctx, pair=True)
+    compare_pair = emit('train_compare_pair', **compare_pair, nvidia_smi=smi)
+    if not ok:
+        print('chip_smoke: train_compare_pair failed', file=sys.stderr)
         return 1
     train, ok = train_phase(ctx, smi)
     train = emit('train', **train)
@@ -698,6 +904,18 @@ def main() -> int:
     train_prof = emit('train_profile', **profile_device(
         lambda: step(state, ctx['hr'], ctx['lr'], *inputs),
         train['ms_per_step']), nvidia_smi=smi)
+
+    # the same model and state go on training with every stack's blocks
+    # run as pairs
+    train_pair, ok = train_phase(ctx, smi, pair=True)
+    train_pair = emit('train_pair', **train_pair)
+    if not ok:
+        print('chip_smoke: train_pair failed', file=sys.stderr)
+        return 1
+    state = ctx['state']
+    pair_prof = emit('train_pair_profile', **profile_device(
+        lambda: step(state, ctx['hr'], ctx['lr'], *inputs),
+        train_pair['ms_per_step']), nvidia_smi=smi)
 
     tpu = 'srcaco2_tpu/ops/pallas/swin_block.py'
     src = 'srcaco2_tpu_torch/ops/csrc'
@@ -725,12 +943,29 @@ def main() -> int:
             # no single PyTorch call computes a whole Swin block or its
             # backward
             'library_ms': None})
+    bf16_pair = next(c for c in pair_checks if c['dtype'] == 'bf16')
+    for name, key, line, err in (('swin_block_pair_fwd', 'fwd', 631, 'out'),
+                                 ('swin_block_pair_bwd', 'bwd', 647, 'dx')):
+        t = pair_times[key]
+        kernels.append({
+            'name': name, 'route': 'cuda', 'source': f'{src}/{name}.cu',
+            'replaces': f'{tpu}:{line}',
+            'launches': train_pair['launches'][f'pair_{key}'],
+            'max_abs_err': bf16_pair['errs'][err]['max_abs'],
+            'ms': t['ms'], 'plain_ms': t['plain_ms'],
+            'bound_ms': t['bound_ms'], 'bound_by': t['bound_by'],
+            # no single PyTorch call computes a block pair or its backward
+            'library_ms': None})
     emit('kernels', kernels=[
         {'name': 'swin_block_grouped', 'tpu': f'{tpu}:_fwd_kernel_grouped',
          'check_passed': True},
         {'name': 'swin_block_fwd', 'tpu': f'{tpu}:_fwd_kernel',
          'check_passed': True},
         {'name': 'swin_block_bwd', 'tpu': f'{tpu}:_bwd_kernel',
+         'check_passed': True},
+        {'name': 'swin_block_pair_fwd', 'tpu': f'{tpu}:_fwd_kernel_pair',
+         'check_passed': True},
+        {'name': 'swin_block_pair_bwd', 'tpu': f'{tpu}:_bwd_kernel_pair',
          'check_passed': True}])
     if out_dir:
         with open(os.path.join(out_dir, 'chip_smoke.json'), 'w') as f:
@@ -739,6 +974,11 @@ def main() -> int:
                        'kernel_check_train': train_checks,
                        'kernel_time_train': train_times, 'train': train,
                        'train_compare': compare, 'train_profile': train_prof,
+                       'kernel_check_pair': pair_checks,
+                       'kernel_time_pair': pair_times,
+                       'train_compare_pair': compare_pair,
+                       'train_pair': train_pair,
+                       'train_pair_profile': pair_prof,
                        'kernels': kernels}, f, indent=1)
     print(json.dumps({'kernels': kernels}))
     print(smi)

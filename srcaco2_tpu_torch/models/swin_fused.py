@@ -8,8 +8,12 @@ the device:
     call of ops/swin_block.fused_swin_block (K1 forward, K2 backward on
     the card; their plain versions on the CPU), with the cyclic shift
     and the window partition folded into the (nh, T, T) attention bias
-    that build_attn_bias gathers from the bias tables. This is the
-    training path (`_pallas_path` in the JAX package).
+    that build_attn_bias gathers from the bias tables. With
+    SRCACO2_SWIN_PAIR=1 and an even depth, each (no-shift, shift) pair
+    of blocks is one call of ops/swin_block.fused_swin_block_pair
+    instead (K3 forward, K4 backward), a different function in bf16:
+    the stream stays f32 inside the pair. This is the training path
+    (`_pallas_path` in the JAX package).
   * tiled (evaluation only, H and W multiples of 2ws, T > 256): the
     image is cut into 2ws x 2ws tiles; the per-block cyclic shift, tile
     partition and group-major tile order fold into one token gather,
@@ -28,6 +32,7 @@ leaves with LayerNorm `scale` -> `weight`; dense kernels keep the JAX
 (in, out) layout.
 """
 import math
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -43,6 +48,7 @@ from srcaco2_tpu_torch.ops.swin_block import (BLOCK_KEYS, MAX_T, NEG_INF,
                                               block_shift, build_attn_bias,
                                               fused_swin_block,
                                               fused_swin_block_grouped,
+                                              fused_swin_block_pair,
                                               pack_block_bwd_params,
                                               pack_block_params)
 
@@ -119,7 +125,9 @@ class _TilePlan(NamedTuple):
 class FusedBlockStack(nn.Module):
     """depth Swin blocks (shift 0 / ws//2 alternating) over stacked
     parameters. (B, H, W, C) in and out, H and W multiples of ws; the
-    stream is carried in `dtype`."""
+    stream is carried in `dtype`. `pair` (SRCACO2_SWIN_PAIR at
+    construction, default off as in JAX) runs the fused path's blocks
+    as pairs."""
 
     def __init__(self, dim: int, depth: int, num_heads: int,
                  window_size: int, mlp_ratio: float, *,
@@ -144,6 +152,8 @@ class FusedBlockStack(nn.Module):
         # measurement can swap in the plain versions to compare paths
         self.block_op = fused_swin_block_grouped
         self.fused_op = fused_swin_block
+        self.pair_op = fused_swin_block_pair
+        self.pair = os.environ.get('SRCACO2_SWIN_PAIR', '0') != '0'
         self._plans = {}
 
     def reset_parameters(self, gen: torch.Generator):
@@ -184,8 +194,10 @@ class FusedBlockStack(nn.Module):
             'windowed path runs only on the CPU so far; see ROADMAP.md')
 
     def _fused_path(self, x: torch.Tensor) -> torch.Tensor:
-        """T <= 256: one fused block (with backward) per depth step; the
-        weights are packed for the kernels once per call."""
+        """T <= 256: one fused block (with backward) per depth step, or
+        one fused pair per two with `pair` on and an even depth (odd
+        depths keep the per-block path, as in JAX); the weights are
+        packed for the kernels once per call."""
         b, h, w, c = x.shape
         ws, nh, cdt = self.window_size, self.num_heads, self.dtype
         t = h * w
@@ -196,15 +208,31 @@ class FusedBlockStack(nn.Module):
             packed = pack_block_params(params, nh, cdt)
             if torch.is_grad_enabled():
                 packed_bwd = pack_block_bwd_params(params, nh, cdt)
+
+        def blk(i):
+            return {k: v[i] for k, v in params.items()}
+
+        def pk(pack, i):
+            return None if pack is None else pack.block(i)
+
+        def window(i):
+            return (h, w, ws, block_shift(i, ws))
+
         carry = x.reshape(b, t, c).to(cdt).contiguous()
+        if self.pair and self.depth % 2 == 0:
+            for i in range(0, self.depth, 2):
+                carry = self.pair_op(
+                    carry, blk(i), bias[i], blk(i + 1), bias[i + 1],
+                    heads=nh, windows=(window(i), window(i + 1)),
+                    compute_dtype=cdt,
+                    packed=(pk(packed, i), pk(packed, i + 1)),
+                    packed_bwd=(pk(packed_bwd, i), pk(packed_bwd, i + 1)))
+            return carry.reshape(b, h, w, c)
         for i in range(self.depth):
             carry = self.fused_op(
-                carry, {k: v[i] for k, v in params.items()}, bias[i],
-                heads=nh, window=(h, w, ws, block_shift(i, ws)),
-                compute_dtype=cdt,
-                packed=None if packed is None else packed.block(i),
-                packed_bwd=None if packed_bwd is None
-                else packed_bwd.block(i))
+                carry, blk(i), bias[i], heads=nh, window=window(i),
+                compute_dtype=cdt, packed=pk(packed, i),
+                packed_bwd=pk(packed_bwd, i))
         return carry.reshape(b, h, w, c)
 
     def _plan(self, b: int, h: int, w: int, device) -> _TilePlan:

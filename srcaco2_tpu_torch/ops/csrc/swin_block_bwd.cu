@@ -50,597 +50,33 @@
 // GELU grad runs in T with the expression order of _gelu_grad. One
 // departure: dbqkv sums the T-rounded dqkv in f32 where JAX rounds each
 // grid program's partial sum to T.
-#include "swin_block_common.cuh"
+//
+// The window body, the reduction pass and the workspace plan live in
+// swin_block_bwd_common.cuh, shared with the pair backward (K4).
+#include "swin_block_bwd_common.cuh"
 
 namespace {
 
 using namespace swin;
 
-constexpr int KS = 32;             // token rows per staging step
-constexpr int LDT = KS + 8;        // staged tile stride
-constexpr int SPLIT_ROWS = 2048;   // token rows per split of a tile
-constexpr int N_CS = 7;            // column-sum outputs
-
-// One weight product of the reduction: out[k][n] = sum_m A[m][k] B[m][n]
-// over every token m, for k < kp, n < np; with `ones`, row kp of A is
-// taken as ones and its row of out (the column sums of B) goes to bout.
-struct Prod {
-  const void* a;
-  const void* b;
-  float* out;
-  float* bout;
-  int lda, ldb, kp, np, ones;
-  int tn, first, tiles;   // tiles along n, first tile id, tile count
-};
-
-struct Params {
-  const void* x;
-  const void* dout;
-  void* dx;
-  const int* idx;             // (nwin, 64) raster token of each local row
-  const float* bias;          // (heads, t, t)
-  FwdWeights w;
-  const void* wqkv_t;         // (cn, 3 ca) T, q pre-scaled
-  const void* wproj_t;        // (ca, ck) T
-  const void* w1_t;           // (cn, chp) T
-  const void* w2_t;           // (chp, ck) T
-  // workspace: per-token operands (T), rows in window order
-  void* y; void* qkv; void* o; void* y2; void* u; void* hact;
-  void* g; void* du; void* dx2; void* dqkv;
-  float* ds;                  // (n_cta, heads, 64, 64)
-  float* cs;                  // (n_cta * 4, ncs) column-sum partials
-  float* part;                // (n_tiles, n_split, 64, 64)
-  int* counters;              // (n_tiles,)
-  float* cs_out[N_CS];        // dbm2, dbm1, dg2, db2, dbproj, dg1, db1
-  float* dbias;               // (heads, t, t)
-  Prod prod[4];
-  int t, nwin, n_img, n_cta, ncs, n_split, n_tiles;
-  int n_gemm_blocks, n_cs_blocks, n_db_blocks;
-  Dims d;
-};
-
-// Offsets of the column sums inside a row of `cs`.
-struct CsOff {
-  int dbm2, dbm1, dg2, db2, dbproj, dg1, db1, n;
-};
-
-__host__ __device__ inline CsOff cs_off(const Dims& d) {
-  CsOff o;
-  o.dbm2 = 0;
-  o.dbm1 = d.c;
-  o.dg2 = d.c + d.chp;
-  o.db2 = o.dg2 + d.c;
-  o.dbproj = o.db2 + d.c;
-  o.dg1 = o.dbproj + d.c;
-  o.db1 = o.dg1 + d.c;
-  o.n = o.db1 + d.c;
-  return o;
-}
-
-// Shared memory of the window kernel. The region r holds, in turn, the
-// recompute's attention scratch, the backward's per-head attention
-// scratch, and D (f32 [64][c]: dy2, later dy).
-struct BwdLayout {
-  size_t x, y, o, stats, r;
-  size_t q, k, vt, s, p, rinv;       // recompute scratch
-  size_t bs, bdp, bpc, bds;          // attention-backward scratch
-  size_t total;
-};
-
-template <typename T>
-__host__ __device__ inline BwdLayout make_bwd_layout(const Dims& d) {
-  int ld[8];
-  fwd_strides<T>(d, ld);
-  BwdLayout L;
-  size_t off = 0;
-  L.x = off;     off = align16(off + sizeof(float) * NW * ld[0]);
-  L.y = off;     off = align16(off + sizeof(T) * NW * ld[1]);
-  L.o = off;     off = align16(off + sizeof(T) * NW * ld[2]);
-  L.stats = off; off = align16(off + sizeof(float) * 4 * NW);
-  L.r = off;
-  size_t e = off;
-  L.q = e;       e = align16(e + sizeof(T) * NW * ld[3]);
-  L.k = e;       e = align16(e + sizeof(T) * NW * ld[3]);
-  L.vt = e;      e = align16(e + sizeof(T) * d.hp * ld[4]);
-  L.s = e;       e = align16(e + sizeof(float) * NW * ld[5]);
-  L.p = e;       e = align16(e + sizeof(T) * NW * ld[6]);
-  L.rinv = e;    e = align16(e + sizeof(float) * NW);
-  size_t end = e;
-  e = off;
-  L.bs = e;      e = align16(e + sizeof(float) * NW * ld[5]);
-  L.bdp = e;     e = align16(e + sizeof(T) * NW * ld[6]);
-  L.bpc = e;     e = align16(e + sizeof(T) * NW * ld[6]);
-  L.bds = e;     e = align16(e + sizeof(T) * NW * ld[6]);
-  end = e > end ? e : end;
-  e = align16(off + sizeof(float) * NW * d.c);     // D
-  L.total = e > end ? e : end;
-  return L;
-}
-
-// Column sums of f(r, cc), cc < n, over each 16-row block, into
-// cs[rb * ldcs + cc] (one thread per (block, column), fixed order).
-template <typename F>
-__device__ inline void colsum(float* cs, int ldcs, int n, F f) {
-  for (int i = threadIdx.x; i < 4 * n; i += THREADS) {
-    const int rb = i / n, cc = i % n;
-    float acc = 0.f;
-    for (int r = rb * 16; r < rb * 16 + 16; ++r) acc += f(r, cc);
-    cs[rb * ldcs + cc] = acc;
-  }
-}
-
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
-swin_block_bwd_window_kernel(const Params p) {
+swin_block_bwd_window_kernel(const BwdParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const Dims d = p.d;
-  const BwdLayout L = make_bwd_layout<T>(d);
-  const int cta = blockIdx.x;
-  const int img = cta / p.nwin, win = cta % p.nwin;
-  const int* tok = p.idx + win * NW;
-  const size_t row0 = static_cast<size_t>(img) * p.t;
-  const size_t tt = p.t;
-  const size_t srow = static_cast<size_t>(cta) * NW;   // workspace row
-  const int c = d.c, hp = d.hp, ca = d.ca, ck = d.ck, chp = d.chp;
-  const int ld3 = 3 * ca;
-  if (cta == 0)
-    for (int i = threadIdx.x; i < p.n_tiles; i += THREADS) p.counters[i] = 0;
-
-  int ld[8];
-  fwd_strides<T>(d, ld);
-  FwdSmem<T> s;
-  s.X = reinterpret_cast<float*>(smem + L.x);
-  s.Y = reinterpret_cast<T*>(smem + L.y);
-  s.O = reinterpret_cast<T*>(smem + L.o);
-  s.Q = reinterpret_cast<T*>(smem + L.q);
-  s.K = reinterpret_cast<T*>(smem + L.k);
-  s.Vt = reinterpret_cast<T*>(smem + L.vt);
-  s.S = reinterpret_cast<float*>(smem + L.s);
-  s.P = reinterpret_cast<T*>(smem + L.p);
-  s.rinv = reinterpret_cast<float*>(smem + L.rinv);
-  s.H = nullptr;
-  s.ldx = ld[0]; s.ldy = ld[1]; s.ldo = ld[2]; s.ldq = ld[3];
-  s.ldvt = ld[4]; s.lds = ld[5]; s.ldp = ld[6]; s.ldh = ld[7];
-  float* stats = reinterpret_cast<float*>(smem + L.stats);
-  const float* mu1 = stats;
-  const float* rstd1 = stats + NW;
-  const float* mu2 = stats + 2 * NW;
-  const float* rstd2 = stats + 3 * NW;
-
-  Spill<T> sp;
-  sp.y = static_cast<T*>(p.y) + srow * ck;
-  sp.qkv = static_cast<T*>(p.qkv) + srow * ld3;
-  sp.o = static_cast<T*>(p.o) + srow * ca;
-  sp.y2 = static_cast<T*>(p.y2) + srow * ck;
-  sp.u = static_cast<T*>(p.u) + srow * chp;
-  sp.hact = static_cast<T*>(p.hact) + srow * chp;
-  sp.mu1 = stats;
-  sp.rstd1 = stats + NW;
-  sp.mu2 = stats + 2 * NW;
-  sp.rstd2 = stats + 3 * NW;
-  T* g_sp = static_cast<T*>(p.g) + srow * ck;
-  T* du_sp = static_cast<T*>(p.du) + srow * chp;
-  T* dx2_sp = static_cast<T*>(p.dx2) + srow * ck;
-  T* dqkv_sp = static_cast<T*>(p.dqkv) + srow * ld3;
-  float* cs = p.cs + static_cast<size_t>(cta) * 4 * p.ncs;
-  const CsOff co = cs_off(d);
-
-  const T* x = static_cast<const T*>(p.x);
-  const T* dout = static_cast<const T*>(p.dout);
-  auto x_row = [&](int r) { return row0 + tok[r]; };
-  auto bias_at = [&](int h, int r, int cc) {
-    return p.bias[(h * tt + tok[r]) * tt + tok[cc]];
-  };
-  block_forward<T, true>(p.w, d, s, x, static_cast<T*>(nullptr), x_row,
-                         bias_at, sp);
-
-  float* X = s.X;     // x2, then dx2 (f32)
-  T* Y = s.Y;         // dout, then dx2 (T)
-  T* O = s.O;         // do (T)
-  const int ldx = s.ldx, ldy = s.ldy, ldo = s.ldo, ldp = s.ldp,
-            lds = s.lds;
-  float* D = reinterpret_cast<float*>(smem + L.r);    // dy2, then dy
-  float* BS = reinterpret_cast<float*>(smem + L.bs);  // p (f32)
-  T* DP = reinterpret_cast<T*>(smem + L.bdp);
-  T* PC = reinterpret_cast<T*>(smem + L.bpc);         // p in T
-  T* DS = reinterpret_cast<T*>(smem + L.bds);
-  const T* wqkv_t = static_cast<const T*>(p.wqkv_t);
-  const T* wproj_t = static_cast<const T*>(p.wproj_t);
-  const T* w1_t = static_cast<const T*>(p.w1_t);
-  const T* w2_t = static_cast<const T*>(p.w2_t);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-
-  // dout rows in T (zero pads) -> Y, and to the workspace for dW2
-  for (int i = threadIdx.x; i < NW * ck; i += THREADS) {
-    const int r = i / ck, cc = i % ck;
-    const T v = cc < c ? dout[x_row(r) * c + cc] : from_f32<T>(0.f);
-    Y[r * ldy + cc] = v;
-    g_sp[r * ck + cc] = v;
-  }
-  __syncthreads();
-  colsum(cs + co.dbm2, p.ncs, c,
-         [&](int r, int cc) { return to_f32(Y[r * ldy + cc]); });
-  // dh = g . W2^T; du = dh * gelu'(u) (f32) -> T to the workspace;
-  // column sums of the f32 du give dbm1
-  gemm64_colsum<T>(
-      Y, ldy, w2_t, ck, ck, chp,
-      [&](int r, int col, float v0, float v1) -> float2 {
-        const float du0 = v0 * gelu_grad<T>(to_f32(sp.u[r * chp + col]));
-        const float du1 =
-            v1 * gelu_grad<T>(to_f32(sp.u[r * chp + col + 1]));
-        du_sp[r * chp + col] = from_f32<T>(du0);
-        du_sp[r * chp + col + 1] = from_f32<T>(du1);
-        return make_float2(du0, du1);
-      },
-      cs + co.dbm1, p.ncs);
-  __syncthreads();
-  // dy2 = du . W1^T (f32) -> D
-  gemm64<T>(du_sp, chp, w1_t, chp, chp, d.cn,
-            [&](int r, int col, float v0, float v1) {
-              if (col < c) D[r * c + col] = v0;
-              if (col + 1 < c) D[r * c + col + 1] = v1;
-            });
-  __syncthreads();
-  // LN2 backward: dg2, db2 column sums (need x2), then per row
-  // dx2 = g + (dxhat - mean(dxhat) - xhat mean(dxhat xhat)) rstd
-  colsum(cs + co.dg2, p.ncs, c, [&](int r, int cc) {
-    return D[r * c + cc] * ((X[r * ldx + cc] - mu2[r]) * rstd2[r]);
-  });
-  colsum(cs + co.db2, p.ncs, c,
-         [&](int r, int cc) { return D[r * c + cc]; });
-  __syncthreads();
-  for (int r = warp; r < NW; r += THREADS / 32) {
-    float a = 0.f, b = 0.f;
-    for (int cc = lane; cc < c; cc += 32) {
-      const float xh = (X[r * ldx + cc] - mu2[r]) * rstd2[r];
-      const float dxh = D[r * c + cc] * p.w.g2[cc];
-      a += dxh;
-      b += dxh * xh;
-    }
-    const float m1 = warp_sum(a) / c, m2 = warp_sum(b) / c;
-    for (int cc = lane; cc < c; cc += 32) {
-      const float xh = (X[r * ldx + cc] - mu2[r]) * rstd2[r];
-      const float dxh = D[r * c + cc] * p.w.g2[cc];
-      const float v =
-          to_f32(Y[r * ldy + cc]) + (dxh - m1 - xh * m2) * rstd2[r];
-      X[r * ldx + cc] = v;
-      Y[r * ldy + cc] = from_f32<T>(v);
-    }
-  }
-  __syncthreads();
-  colsum(cs + co.dbproj, p.ncs, c,
-         [&](int r, int cc) { return X[r * ldx + cc]; });
-  store_rows(Y, ldy, dx2_sp, ck, ck);
-  // do = dx2 . Wproj^T -> O (T)
-  gemm64<T>(Y, ldy, wproj_t, ck, ck, ca,
-            [&](int r, int col, float v0, float v1) {
-              O[r * ldo + col] = from_f32<T>(v0);
-              O[r * ldo + col + 1] = from_f32<T>(v1);
-            });
-  __syncthreads();
-
-  // attention backward, one head at a time
-  for (int h = 0; h < d.heads; ++h) {
-    const T* qh = sp.qkv + h * hp;
-    const T* kh = sp.qkv + (d.heads + h) * hp;
-    const T* vh = sp.qkv + (2 * d.heads + h) * hp;
-    const T* doh = O + h * hp;
-    gemm64<T>(qh, ld3, kh, ld3, hp, NW,
-              [&](int r, int col, float v0, float v1) {
-                BS[r * lds + col] = v0 + bias_at(h, r, col);
-                BS[r * lds + col + 1] = v1 + bias_at(h, r, col + 1);
-              });
-    __syncthreads();
-    // p = e * T(1/r) in f32; its T rounding feeds dv = p^T . do
-    for (int r = warp; r < NW; r += THREADS / 32) {
-      const float s0 = BS[r * lds + lane], s1 = BS[r * lds + lane + 32];
-      const float m = warp_max(fmaxf(s0, s1));
-      const float e0 = expf(s0 - m), e1 = expf(s1 - m);
-      const float ri = rnd<T>(1.f / warp_sum(e0 + e1));
-      BS[r * lds + lane] = e0 * ri;
-      BS[r * lds + lane + 32] = e1 * ri;
-      PC[r * ldp + lane] = from_f32<T>(e0 * ri);
-      PC[r * ldp + lane + 32] = from_f32<T>(e1 * ri);
-    }
-    __syncthreads();
-    // dp = do . v^T -> T
-    gemm64<T>(doh, ldo, vh, ld3, hp, NW,
-              [&](int r, int col, float v0, float v1) {
-                DP[r * ldp + col] = from_f32<T>(v0);
-                DP[r * ldp + col + 1] = from_f32<T>(v1);
-              });
-    // dv = p^T . do -> T
-    gemm64<T, true, true>(PC, ldp, doh, ldo, NW, hp,
-                          [&](int r, int col, float v0, float v1) {
-                            T* row = dqkv_sp + r * ld3 +
-                                     (2 * d.heads + h) * hp;
-                            row[col] = from_f32<T>(v0);
-                            row[col + 1] = from_f32<T>(v1);
-                          });
-    __syncthreads();
-    // rs = sum_j dp p (f32); ds = p * T(dp - T(rs)) (f32): to the
-    // workspace for the bias grad, in T for dq / dk
-    for (int r = warp; r < NW; r += THREADS / 32) {
-      const float p0 = BS[r * lds + lane], p1 = BS[r * lds + lane + 32];
-      const float dp0 = to_f32(DP[r * ldp + lane]);
-      const float dp1 = to_f32(DP[r * ldp + lane + 32]);
-      const float rs = rnd<T>(warp_sum(dp0 * p0 + dp1 * p1));
-      const float ds0 = p0 * rnd<T>(dp0 - rs);
-      const float ds1 = p1 * rnd<T>(dp1 - rs);
-      float* dsr = p.ds + ((static_cast<size_t>(cta) * d.heads + h) * NW
-                           + r) * NW;
-      dsr[lane] = ds0;
-      dsr[lane + 32] = ds1;
-      DS[r * ldp + lane] = from_f32<T>(ds0);
-      DS[r * ldp + lane + 32] = from_f32<T>(ds1);
-    }
-    __syncthreads();
-    // dq = ds . k, dk = ds^T . q (q pre-scaled: no extra scale)
-    gemm64<T, false, true>(DS, ldp, kh, ld3, NW, hp,
-                           [&](int r, int col, float v0, float v1) {
-                             T* row = dqkv_sp + r * ld3 + h * hp;
-                             row[col] = from_f32<T>(v0);
-                             row[col + 1] = from_f32<T>(v1);
-                           });
-    gemm64<T, true, true>(DS, ldp, qh, ld3, NW, hp,
-                          [&](int r, int col, float v0, float v1) {
-                            T* row = dqkv_sp + r * ld3 +
-                                     (d.heads + h) * hp;
-                            row[col] = from_f32<T>(v0);
-                            row[col + 1] = from_f32<T>(v1);
-                          });
-    __syncthreads();
-  }
-
-  // dy = dqkv . Wqkv^T (f32) -> D
-  gemm64<T>(dqkv_sp, ld3, wqkv_t, ld3, ld3, d.cn,
-            [&](int r, int col, float v0, float v1) {
-              if (col < c) D[r * c + col] = v0;
-              if (col + 1 < c) D[r * c + col + 1] = v1;
-            });
-  __syncthreads();
-  // LN1 backward (x re-read from global), then dx = dx2 + dx_ln1
-  auto xhat1 = [&](int r, int cc) {
-    return (to_f32(x[x_row(r) * c + cc]) - mu1[r]) * rstd1[r];
-  };
-  colsum(cs + co.dg1, p.ncs, c,
-         [&](int r, int cc) { return D[r * c + cc] * xhat1(r, cc); });
-  colsum(cs + co.db1, p.ncs, c,
-         [&](int r, int cc) { return D[r * c + cc]; });
-  T* dx = static_cast<T*>(p.dx);
-  for (int r = warp; r < NW; r += THREADS / 32) {
-    float a = 0.f, b = 0.f;
-    for (int cc = lane; cc < c; cc += 32) {
-      const float dxh = D[r * c + cc] * p.w.g1[cc];
-      a += dxh;
-      b += dxh * xhat1(r, cc);
-    }
-    const float m1 = warp_sum(a) / c, m2 = warp_sum(b) / c;
-    for (int cc = lane; cc < c; cc += 32) {
-      const float xh = xhat1(r, cc);
-      const float dxh = D[r * c + cc] * p.w.g1[cc];
-      dx[x_row(r) * c + cc] =
-          from_f32<T>(X[r * ldx + cc] + (dxh - m1 - xh * m2) * rstd1[r]);
-    }
-  }
-}
-
-// One split of one 64x64 tile of a weight product; the last split of
-// the tile to finish sums the splits' partials in order.
-template <typename T>
-__device__ inline void reduce_tile(const Params& p, int job,
-                                   unsigned char* smem) {
-  __shared__ int last;
-  const int tile = job / p.n_split, split = job % p.n_split;
-  int pi = 0;
-  while (tile >= p.prod[pi].first + p.prod[pi].tiles) ++pi;
-  const Prod& pr = p.prod[pi];
-  const int local = tile - pr.first;
-  const int k0 = (local / pr.tn) * 64, n0 = (local % pr.tn) * 64;
-  const T* A = static_cast<const T*>(pr.a);
-  const T* B = static_cast<const T*>(pr.b);
-  const size_t m_all = static_cast<size_t>(p.n_cta) * NW;
-  const size_t m_beg = static_cast<size_t>(split) * SPLIT_ROWS;
-  const size_t m_end = m_beg + SPLIT_ROWS < m_all ? m_beg + SPLIT_ROWS
-                                                   : m_all;
-  T* At = reinterpret_cast<T*>(smem);   // [64 k][LDT] A^T
-  T* Bt = At + 64 * LDT;                // [64 n][LDT] B^T
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int rb = (warp & 3) * 16, nb = (warp >> 2) * 8 * NB;
-  const int g = lane >> 2, t = lane & 3;
-  float acc[NB][4];
-#pragma unroll
-  for (int j = 0; j < NB; ++j)
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  for (size_t m0 = m_beg; m0 < m_end; m0 += KS) {
-    for (int e = threadIdx.x; e < 64 * KS; e += THREADS) {
-      const int mm = e / 64, kk = e % 64;
-      const size_t m = m0 + mm;
-      const int k = k0 + kk, n = n0 + kk;
-      T av = from_f32<T>(0.f);
-      if (k < pr.kp) av = A[m * pr.lda + k];
-      else if (pr.ones && k == pr.kp) av = from_f32<T>(1.f);
-      At[kk * LDT + mm] = av;
-      Bt[kk * LDT + mm] = n < pr.np ? B[m * pr.ldb + n] : from_f32<T>(0.f);
-    }
-    __syncthreads();
-    mma_rows<false, false>(acc, At + rb * LDT, LDT, Bt + nb * LDT, LDT, KS,
-                           NB, lane);
-    __syncthreads();
-  }
-  float* part = p.part + (static_cast<size_t>(tile) * p.n_split + split)
-      * 4096;
-#pragma unroll
-  for (int j = 0; j < NB; ++j) {
-    const int col = nb + 8 * j + 2 * t;
-    part[(rb + g) * 64 + col] = acc[j][0];
-    part[(rb + g) * 64 + col + 1] = acc[j][1];
-    part[(rb + g + 8) * 64 + col] = acc[j][2];
-    part[(rb + g + 8) * 64 + col + 1] = acc[j][3];
-  }
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0)
-    last = atomicAdd(p.counters + tile, 1) == p.n_split - 1;
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  const float* parts = p.part + static_cast<size_t>(tile) * p.n_split
-      * 4096;
-  for (int e = threadIdx.x; e < 4096; e += THREADS) {
-    const int k = k0 + e / 64, n = n0 + e % 64;
-    if (n >= pr.np) continue;
-    float sum = 0.f;
-    for (int q = 0; q < p.n_split; ++q) sum += __ldcg(parts + q * 4096 + e);
-    if (k < pr.kp) pr.out[static_cast<size_t>(k) * pr.np + n] = sum;
-    else if (pr.ones && k == pr.kp) pr.bout[n] = sum;
-  }
-}
-
-// 32 columns of the column-sum partials per block, 8 row slices summed
-// in a fixed order.
-__device__ inline void reduce_colsums(const Params& p, int job,
-                                      unsigned char* smem) {
-  float* red = reinterpret_cast<float*>(smem);
-  const int lane = threadIdx.x & 31, sl = threadIdx.x >> 5;
-  const int col = job * 32 + lane;
-  const int rows = p.n_cta * 4;
-  float s = 0.f;
-  if (col < p.ncs)
-    for (int r = sl; r < rows; r += 8)
-      s += p.cs[static_cast<size_t>(r) * p.ncs + col];
-  red[sl * 32 + lane] = s;
-  __syncthreads();
-  if (sl != 0 || col >= p.ncs) return;
-  float tot = 0.f;
-  for (int q = 0; q < 8; ++q) tot += red[q * 32 + lane];
-  const int c = p.d.c, chp = p.d.chp;
-  if (col < c) {
-    p.cs_out[0][col] = tot;
-  } else if (col < c + chp) {
-    p.cs_out[1][col - c] = tot;
-  } else {
-    const int k = col - c - chp;
-    p.cs_out[2 + k / c][k % c] = tot;
-  }
-}
-
-// 256 entries of the bias grad per block: the windows' ds summed over
-// the patches; zero between tokens of different windows.
-__device__ inline void reduce_dbias(const Params& p, int job,
-                                    unsigned char* smem) {
-  int* win_of = reinterpret_cast<int*>(smem);
-  int* pos_of = win_of + p.t;
-  for (int i = threadIdx.x; i < p.t; i += THREADS) {
-    win_of[p.idx[i]] = i / NW;
-    pos_of[p.idx[i]] = i % NW;
-  }
-  __syncthreads();
-  const size_t tt = p.t;
-  const size_t e = static_cast<size_t>(job) * THREADS + threadIdx.x;
-  if (e >= p.d.heads * tt * tt) return;
-  const int h = static_cast<int>(e / (tt * tt));
-  const int i = static_cast<int>((e / tt) % tt), j = static_cast<int>(e % tt);
-  const int wi = win_of[i];
-  float sum = 0.f;
-  if (wi == win_of[j]) {
-    for (int img = 0; img < p.n_img; ++img)
-      sum += p.ds[((static_cast<size_t>(img * p.nwin + wi) * p.d.heads + h)
-                   * NW + pos_of[i]) * NW + pos_of[j]];
-  }
-  p.dbias[e] = sum;
+  if (blockIdx.x == 0) zero_counters(p);
+  window_backward<T, false, T, T, T>(p, p.blk[0], blockIdx.x, smem);
 }
 
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-swin_block_bwd_reduce_kernel(const Params p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  int job = blockIdx.x;
-  if (job < p.n_gemm_blocks) {
-    reduce_tile<T>(p, job, smem);
-    return;
-  }
-  job -= p.n_gemm_blocks;
-  if (job < p.n_cs_blocks) {
-    reduce_colsums(p, job, smem);
-    return;
-  }
-  reduce_dbias(p, job - p.n_cs_blocks, smem);
-}
-
-// Host side: the workspace layout and the reduction's job table.
-struct Plan {
-  Dims d;
-  int t, nwin, n_img, n_cta, ncs, n_split, n_tiles;
-  size_t m;
-  size_t off[14];   // y qkv o y2 u hact g du dx2 dqkv | ds cs part counters
-  size_t total;
-  int tn[4], tiles[4];
-};
-
-inline size_t align256(size_t v) { return (v + 255) / 256 * 256; }
-
-inline Plan make_plan(size_t elt, int n_img, int t, int c, int heads,
-                      int ch) {
-  Plan P;
-  P.d = make_dims(c, heads, ch);
-  const Dims& d = P.d;
-  P.t = t;
-  P.nwin = t / NW;
-  P.n_img = n_img;
-  P.n_cta = n_img * P.nwin;
-  P.m = static_cast<size_t>(P.n_cta) * NW;
-  P.ncs = cs_off(d).n;
-  P.n_split = static_cast<int>((P.m + SPLIT_ROWS - 1) / SPLIT_ROWS);
-  const int kp[4] = {d.c + 1, d.ca, d.c, d.ch};   // qkv carries a ones row
-  const int np[4] = {3 * d.ca, d.c, d.ch, d.c};
-  P.n_tiles = 0;
-  for (int i = 0; i < 4; ++i) {
-    P.tn[i] = (np[i] + 63) / 64;
-    P.tiles[i] = ((kp[i] + 63) / 64) * P.tn[i];
-    P.n_tiles += P.tiles[i];
-  }
-  const size_t widths[10] = {
-      static_cast<size_t>(d.ck), static_cast<size_t>(3 * d.ca),
-      static_cast<size_t>(d.ca), static_cast<size_t>(d.ck),
-      static_cast<size_t>(d.chp), static_cast<size_t>(d.chp),
-      static_cast<size_t>(d.ck), static_cast<size_t>(d.chp),
-      static_cast<size_t>(d.ck), static_cast<size_t>(3 * d.ca)};
-  size_t off = 0;
-  for (int i = 0; i < 10; ++i) {
-    P.off[i] = off;
-    off = align256(off + elt * P.m * widths[i]);
-  }
-  P.off[10] = off;
-  off = align256(off + sizeof(float) * P.n_cta * heads * NW * NW);
-  P.off[11] = off;
-  off = align256(off + sizeof(float) * P.n_cta * 4 * P.ncs);
-  P.off[12] = off;
-  off = align256(off + sizeof(float) * static_cast<size_t>(P.n_tiles)
-                 * P.n_split * 4096);
-  P.off[13] = off;
-  off = align256(off + sizeof(int) * P.n_tiles);
-  P.total = off;
-  return P;
-}
-
-template <typename T>
-int launch(const Params& p, const BwdLayout& L, cudaStream_t stream) {
-  cudaError_t err = allow_smem(swin_block_bwd_window_kernel<T>, L.total);
+int launch(const BwdParams& p, cudaStream_t stream) {
+  const size_t smem = make_bwd_layout<T, false>(p.d).total;
+  cudaError_t err = allow_smem(swin_block_bwd_window_kernel<T>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   swin_block_bwd_window_kernel<T>
-      <<<p.n_cta, THREADS, L.total, stream>>>(p);
+      <<<p.n_wins, THREADS, smem, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  size_t red = 2 * 64 * LDT * sizeof(T);
-  if (red < 8 * 32 * sizeof(float)) red = 8 * 32 * sizeof(float);
-  if (red < 2 * sizeof(int) * p.t) red = 2 * sizeof(int) * p.t;
-  err = allow_smem(swin_block_bwd_reduce_kernel<T>, red);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  swin_block_bwd_reduce_kernel<T>
-      <<<p.n_gemm_blocks + p.n_cs_blocks + p.n_db_blocks, THREADS, red,
-         stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  return launch_reduce<T>(p, stream);
 }
 
 }  // namespace
@@ -665,74 +101,24 @@ extern "C" long long swin_block_bwd_workspace(int compute_bf16, int n_img,
 extern "C" int swin_block_bwd(int compute_bf16, const void* const* ptrs,
                               int n_img, int t, int c, int heads, int ch,
                               void* stream) {
-  const size_t elt = compute_bf16 ? 2 : 4;
-  const Plan P = make_plan(elt, n_img, t, c, heads, ch);
-  const Dims& d = P.d;
-  Params p{};
-  p.x = ptrs[0];
-  p.dout = ptrs[1];
-  p.dx = const_cast<void*>(ptrs[2]);
-  p.idx = static_cast<const int*>(ptrs[3]);
-  p.bias = static_cast<const float*>(ptrs[4]);
-  p.w = fwd_weights(ptrs + 5);
-  p.wqkv_t = ptrs[17];
-  p.wproj_t = ptrs[18];
-  p.w1_t = ptrs[19];
-  p.w2_t = ptrs[20];
-  unsigned char* ws =
-      static_cast<unsigned char*>(const_cast<void*>(ptrs[21]));
-  void** spills[10] = {&p.y, &p.qkv, &p.o, &p.y2, &p.u, &p.hact,
-                       &p.g, &p.du, &p.dx2, &p.dqkv};
-  for (int i = 0; i < 10; ++i) *spills[i] = ws + P.off[i];
-  p.ds = reinterpret_cast<float*>(ws + P.off[10]);
-  p.cs = reinterpret_cast<float*>(ws + P.off[11]);
-  p.part = reinterpret_cast<float*>(ws + P.off[12]);
-  p.counters = reinterpret_cast<int*>(ws + P.off[13]);
-  float* outs[13];
-  for (int i = 0; i < 13; ++i)
-    outs[i] = static_cast<float*>(const_cast<void*>(ptrs[22 + i]));
-  for (int i = 0; i < N_CS; ++i) p.cs_out[i] = outs[5 + i];
-  p.dbias = outs[12];
-  // dWqkv = y^T dqkv (+ ones: dbqkv), dWproj = o^T dx2, dW1 = y2^T du,
-  // dW2 = hact^T dout
-  const void* a[4] = {p.y, p.o, p.y2, p.hact};
-  const void* b[4] = {p.dqkv, p.dx2, p.du, p.g};
-  const int lda[4] = {d.ck, d.ca, d.ck, d.chp};
-  const int ldb[4] = {3 * d.ca, d.ck, d.chp, d.ck};
-  const int kp[4] = {d.c, d.ca, d.c, d.ch};
-  const int np[4] = {3 * d.ca, d.c, d.ch, d.c};
-  float* out[4] = {outs[0], outs[2], outs[3], outs[4]};
-  int first = 0;
-  for (int i = 0; i < 4; ++i) {
-    p.prod[i] = Prod{a[i], b[i], out[i], i == 0 ? outs[1] : nullptr,
-                     lda[i], ldb[i], kp[i], np[i], i == 0 ? 1 : 0,
-                     P.tn[i], first, P.tiles[i]};
-    first += P.tiles[i];
-  }
-  p.t = t;
-  p.nwin = P.nwin;
-  p.n_img = n_img;
-  p.n_cta = P.n_cta;
-  p.ncs = P.ncs;
-  p.n_split = P.n_split;
-  p.n_tiles = P.n_tiles;
-  p.n_gemm_blocks = P.n_tiles * P.n_split;
-  p.n_cs_blocks = (P.ncs + 31) / 32;
-  p.n_db_blocks =
-      static_cast<int>((static_cast<size_t>(heads) * t * t + THREADS - 1)
-                       / THREADS);
-  p.d = d;
+  const Plan P = make_plan(compute_bf16 ? 2 : 4, n_img, t, c, heads, ch);
+  BwdParams p{};
+  set_shapes(p, P, 1);
+  bind_block(p.blk[0], P, ptrs[0], ptrs[1], const_cast<void*>(ptrs[2]),
+             ptrs + 3,
+             static_cast<unsigned char*>(const_cast<void*>(ptrs[21])),
+             ptrs + 22);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return compute_bf16 ? launch<bf16>(p, make_bwd_layout<bf16>(d), s)
-                      : launch<float>(p, make_bwd_layout<float>(d), s);
+  return compute_bf16 ? launch<bf16>(p, s) : launch<float>(p, s);
 }
 
 // Dynamic shared memory of the per-window kernel per CTA, in bytes.
 extern "C" long long swin_block_bwd_smem(int compute_bf16, int c,
     int heads, int ch) {
+  const Dims d = make_dims(c, heads, ch);
   return static_cast<long long>(
-      compute_bf16 ? make_bwd_layout<bf16>(make_dims(c, heads, ch)).total
-                   : make_bwd_layout<float>(make_dims(c, heads, ch)).total);
+      compute_bf16 ? make_bwd_layout<bf16, false>(d).total
+                   : make_bwd_layout<float, false>(d).total);
 }
 
 extern "C" const char* swin_error_name(int code) {

@@ -1,7 +1,9 @@
 // Device code shared by the fused Swin block kernels for Hopper (sm_90a):
 // swin_block_grouped.cu (K5, tiled forward), swin_block_fwd.cu (K1,
-// training-patch forward) and swin_block_bwd.cu (K2, backward, whose
-// per-window pass recomputes the forward with this code).
+// training-patch forward), swin_block_pair_fwd.cu (K3, a block pair's
+// forward) and the backward kernels swin_block_bwd.cu (K2) and
+// swin_block_pair_bwd.cu (K4), whose window passes recompute the
+// forward with this code.
 //
 // The unit of work is one 64-token window per CTA (8 warps). Products
 // are warp-level mma.sync m16n8k16 (bf16 in, f32 accumulate) on
@@ -19,7 +21,7 @@
 // e -> T for P.V, times f32 1/r -> T; proj (f32 acc) + f32 bias -> f32
 // residual; LN2 f32 -> T; fc1 (f32 acc) -> T, + T bias -> T; tanh-GELU in
 // T (every op rounded to T); fc2 (f32 acc) + f32 bias -> f32 residual ->
-// stored in T.
+// stored in T (or kept in f32 where a pair's block A feeds block B).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -445,10 +447,14 @@ __device__ inline void store_rows(const T* src, int lds, T* dst, int ldd,
 // Forward kernels (kRecompute false) write the block output to out.
 // The backward's recompute (kRecompute true) skips fc2, keeps x2 in
 // s.X, and writes the per-token operands and row statistics to sp.
-template <typename T, bool kRecompute, typename RowOf, typename BiasAt>
+// The residual input x (XT) and the output out (OT) are T or f32
+// whatever the compute type T: the pair kernels feed block A's f32
+// output, never rounded, to block B.
+template <typename T, bool kRecompute, typename XT, typename OT,
+          typename RowOf, typename BiasAt>
 __device__ inline void block_forward(const FwdWeights& wt, const Dims& d,
-                                     const FwdSmem<T>& s, const T* x,
-                                     T* out, RowOf x_row, BiasAt bias_at,
+                                     const FwdSmem<T>& s, const XT* x,
+                                     OT* out, RowOf x_row, BiasAt bias_at,
                                      const Spill<T>& sp) {
   const T* wqkv = static_cast<const T*>(wt.wqkv);
   const T* bqkv = static_cast<const T*>(wt.bqkv);
@@ -557,14 +563,39 @@ __device__ inline void block_forward(const FwdWeights& wt, const Dims& d,
     __syncthreads();
     gemm64<T>(s.H, s.ldh, w2, d.chp, d.chp, d.cn,
               [&](int r, int col, float v0, float v1) {
-                T* orow = out + x_row(r) * c;
+                OT* orow = out + x_row(r) * c;
                 if (col < c)
                   orow[col] =
-                      from_f32<T>(s.X[r * s.ldx + col] + (v0 + wt.bm2[col]));
+                      from_f32<OT>(s.X[r * s.ldx + col] + (v0 + wt.bm2[col]));
                 if (col + 1 < c)
-                  orow[col + 1] = from_f32<T>(s.X[r * s.ldx + col + 1] +
-                                              (v1 + wt.bm2[col + 1]));
+                  orow[col + 1] = from_f32<OT>(s.X[r * s.ldx + col + 1] +
+                                               (v1 + wt.bm2[col + 1]));
               });
+  }
+}
+
+// One block forward over every window of patch img (t tokens in raster
+// order, windows read through the (t / 64, 64) index table idx) by the
+// whole CTA, one window after another: the pair kernels' unit, since a
+// pair's second block needs all of the first one's output rows.
+template <typename T, typename XT, typename OT>
+__device__ inline void patch_forward(const FwdWeights& w, const Dims& d,
+                                     const FwdSmem<T>& s, const int* idx,
+                                     const float* bias, int t, int img,
+                                     const XT* x, OT* out) {
+  const size_t row0 = static_cast<size_t>(img) * t;
+  const size_t tt = t;
+  for (int win = 0; win < t / NW; ++win) {
+    const int* tok = idx + win * NW;
+    block_forward<T, false>(
+        w, d, s, x, out, [&](int r) { return row0 + tok[r]; },
+        [&](int h, int r, int c) {
+          return bias[(h * tt + tok[r]) * tt + tok[c]];
+        },
+        Spill<T>{});
+    // the next window reuses shared memory; after the last one, every
+    // output row of the patch is visible to the whole CTA
+    __syncthreads();
   }
 }
 

@@ -1,24 +1,35 @@
-"""Fused Swin block: forward, backward and the tiled (grouped) forward.
+"""Fused Swin block: forward, backward, the block pair and the tiled
+(grouped) forward.
 
 Port of srcaco2_tpu/ops/pallas/swin_block.py: the bias constants
-(full_attn_mask_and_index, build_attn_bias), the q pre-scale, and three
+(full_attn_mask_and_index, build_attn_bias), the q pre-scale, and five
 kernels with their plain PyTorch versions:
 
   * K1, the block forward (`_fwd_kernel`): plain `swin_block_ref`, CUDA
     csrc/swin_block_fwd.cu;
   * K2, the block backward (`_bwd_kernel`): plain `swin_block_bwd_ref`,
     CUDA csrc/swin_block_bwd.cu;
+  * K3, the pair forward (`_fwd_kernel_pair`): plain
+    `swin_block_pair_ref`, CUDA csrc/swin_block_pair_fwd.cu;
+  * K4, the pair backward (`_bwd_kernel_pair`): plain
+    `swin_block_pair_bwd_ref`, CUDA csrc/swin_block_pair_bwd.cu;
   * K5, the grouped forward of the tiled path (`_fwd_kernel_grouped`):
     plain `swin_block_grouped_ref`, CUDA csrc/swin_block_grouped.cu.
 
-`fused_swin_block` is the training entry: a torch.autograd.Function
-over K1 and K2 (the counterpart of the JAX custom VJP).
+`fused_swin_block` and `fused_swin_block_pair` are the training entries:
+torch.autograd.Functions over K1 + K2 and K3 + K4 (the counterparts of
+the JAX custom VJPs). A pair is a different function from two chained
+blocks in bf16: block A's output reaches block B in f32, and the pair's
+backward rounds where `_block_bwd_math` does, not where `_bwd_kernel`
+does.
 
 Numerics are fixed to the JAX package's production setting: f32 softmax
-(SRCACO2_SWIN_F32_SOFTMAX's default) and tanh-GELU; the TPU tuning
-knobs are not carried over. Head-lane padding (hd 30 -> 32) is exact
-and lives only in the kernels' weight layouts (`pack_block_params`,
-`pack_block_bwd_params`).
+(SRCACO2_SWIN_F32_SOFTMAX's default) and tanh-GELU. Of the TPU knobs
+the port carries one, SRCACO2_SWIN_PAIR (read by
+models/swin_fused.FusedBlockStack, default off as in JAX), because it
+selects K3 + K4 and their numerics; the tuning knobs are not carried
+over. Head-lane padding (hd 30 -> 32) is exact and lives only in the
+kernels' weight layouts (`pack_block_params`, `pack_block_bwd_params`).
 
 Block parameters are a dict of tensors named as the port's state_dict
 leaves: ln1_weight, ln1_bias, qkv_kernel (C, 3C), qkv_bias (3C,),
@@ -257,31 +268,29 @@ def _ln_bwd(dy, g, xhat, rstd):
     return dx, (dy * xhat).sum(0), dy.sum(0)
 
 
-def swin_block_bwd_ref(x: torch.Tensor, dout: torch.Tensor,
-                       params: Dict[str, torch.Tensor], bias: torch.Tensor,
-                       *, heads: int, compute_dtype=torch.bfloat16):
-    """Plain PyTorch version of K2: recompute the forward, then mirror
-    `_bwd_kernel`'s heads-batched branch (swin_block.py:460-527) with
-    the f32 softmax: du_c, dx2_c, dp and the dq/dk/dv blocks round to
-    the compute dtype; rs, ds, the bias grad and every weight grad stay
-    f32. The one departure: dbqkv sums the rounded dqkv in f32, where
-    JAX rounds each grid program's partial sum to the compute dtype.
+def _bwd_math(g, it, p, heads, cdt, pair_rounding):
+    """Backward of one block from its forward intermediates `it`
+    (_fwd_math over (n, T, C) rows) and the f32 incoming grad g (n*T, C),
+    which enters dbm2 and dx2 unrounded and the products rounded to cdt.
+    du_c, dx2_c, do and the dq/dk/dv blocks round to the compute dtype;
+    ds, the bias grad and every weight grad stay f32. The softmax
+    backward's rounding set: `_bwd_kernel`'s heads-batched branch
+    (swin_block.py:460-527, pair_rounding False) rounds 1/r, dp, rs and
+    dp - rs to the compute dtype; `_block_bwd_math` (:583-628, the
+    pair's, pair_rounding True) keeps them f32. The one departure from
+    both: dbqkv sums the rounded dqkv in f32, where JAX rounds the sum
+    to the compute dtype.
 
-    Returns (dx in x's dtype, {param name: f32 grad in the model
+    Returns (dx (n*T, C) f32, {param name: f32 grad in the model
     layout}, dbias (nh, T, T) f32). The qkv grads are taken through the
     pre-scale, as XLA chains them after the custom VJP."""
-    cdt = compute_dtype
-    b, t, c = x.shape
-    hd = c // heads
-    p = _f32_params(params, heads)
-    _, it = _fwd_math(x.float(), p, bias.float()[None], heads, cdt,
-                      need_out=False)
+    b, _, t, hd = it['q'].shape
+    c = heads * hd
     m = b * t
 
     def rows(z):
         return z.reshape(m, z.shape[-1])
 
-    g = rows(dout.float())
     gc = g.to(cdt)
     hact, y2, u, th = rows(it['hact']), rows(it['y2']), rows(it['u']), \
         rows(it['th'])
@@ -303,11 +312,17 @@ def swin_block_bwd_ref(x: torch.Tensor, dout: torch.Tensor,
     do = _dot(dx2_c, p['proj_kernel'].to(cdt).t())
     do4 = do.to(cdt).reshape(b, t, heads, hd).transpose(1, 2)
     q, k, v, e, rinv = it['q'], it['k'], it['v'], it['e'], it['rinv']
-    pr = e * rinv.to(cdt).float()
-    dp = _dot(do4, v.transpose(-1, -2)).to(cdt)
+    if pair_rounding:
+        pr = e * rinv
+        dp = _dot(do4, v.transpose(-1, -2))
+        rs = (dp * pr).sum(-1, keepdim=True)
+        ds = pr * (dp - rs)
+    else:
+        pr = e * rinv.to(cdt).float()
+        dp = _dot(do4, v.transpose(-1, -2)).to(cdt)
+        rs = (dp.float() * pr).sum(-1, keepdim=True)
+        ds = pr * (dp - rs.to(cdt)).float()
     dv = _dot(pr.to(cdt).transpose(-1, -2), do4)
-    rs = (dp.float() * pr).sum(-1, keepdim=True)
-    ds = pr * (dp - rs.to(cdt)).float()
     dbias = ds.sum(0)
     dsc = ds.to(cdt)
     dq = _dot(dsc, k)
@@ -323,12 +338,74 @@ def swin_block_bwd_ref(x: torch.Tensor, dout: torch.Tensor,
     dbqkv = dqkv.float().sum(0) * colmul
     dx_ln, dg1, db1 = _ln_bwd(dy, p['ln1_weight'], rows(it['xhat1']),
                               rows(it['rstd1']))
-    dx = (dx2 + dx_ln).reshape(b, t, c).to(x.dtype)
     grads = dict(ln1_weight=dg1, ln1_bias=db1, qkv_kernel=dwqkv,
                  qkv_bias=dbqkv, proj_kernel=dwproj, proj_bias=dbproj,
                  ln2_weight=dg2, ln2_bias=db2, mlp1_kernel=dw1,
                  mlp1_bias=dbm1, mlp2_kernel=dw2, mlp2_bias=dbm2)
-    return dx, grads, dbias
+    return dx2 + dx_ln, grads, dbias
+
+
+def swin_block_bwd_ref(x: torch.Tensor, dout: torch.Tensor,
+                       params: Dict[str, torch.Tensor], bias: torch.Tensor,
+                       *, heads: int, compute_dtype=torch.bfloat16):
+    """Plain PyTorch version of K2: recompute the forward, then mirror
+    `_bwd_kernel`'s heads-batched branch (swin_block.py:460-527) with
+    the f32 softmax (see _bwd_math: 1/r, dp, rs and dp - rs round to
+    the compute dtype).
+
+    Returns (dx in x's dtype, {param name: f32 grad in the model
+    layout}, dbias (nh, T, T) f32)."""
+    p = _f32_params(params, heads)
+    _, it = _fwd_math(x.float(), p, bias.float()[None], heads,
+                      compute_dtype, need_out=False)
+    dx, grads, dbias = _bwd_math(dout.float().reshape(-1, x.shape[-1]), it,
+                                 p, heads, compute_dtype,
+                                 pair_rounding=False)
+    return dx.reshape(x.shape).to(x.dtype), grads, dbias
+
+
+def swin_block_pair_ref(x: torch.Tensor, params_a: Dict[str, torch.Tensor],
+                        bias_a: torch.Tensor,
+                        params_b: Dict[str, torch.Tensor],
+                        bias_b: torch.Tensor, *, heads: int,
+                        compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """Plain PyTorch version of K3 (`_fwd_kernel_pair`): block A, then
+    block B on A's f32 output, unrounded; only B's output is rounded to
+    x's dtype. x: (B, T, C)."""
+    pa = _f32_params(params_a, heads)
+    pb = _f32_params(params_b, heads)
+    mid, _ = _fwd_math(x.float(), pa, bias_a.float()[None], heads,
+                       compute_dtype)
+    out, _ = _fwd_math(mid, pb, bias_b.float()[None], heads, compute_dtype)
+    return out.to(x.dtype)
+
+
+def swin_block_pair_bwd_ref(x: torch.Tensor, dout: torch.Tensor,
+                            params_a: Dict[str, torch.Tensor],
+                            bias_a: torch.Tensor,
+                            params_b: Dict[str, torch.Tensor],
+                            bias_b: torch.Tensor, *, heads: int,
+                            compute_dtype=torch.bfloat16):
+    """Plain PyTorch version of K4 (`_bwd_kernel_pair`): recompute A with
+    its f32 output (B's input) and B, run B's backward from dout, then
+    A's backward fed B's f32 dx, both with `_block_bwd_math`'s rounding
+    set (see _bwd_math).
+
+    Returns (dx in x's dtype, grads of A, dbias of A, grads of B, dbias
+    of B), grads as swin_block_bwd_ref gives them."""
+    cdt = compute_dtype
+    pa = _f32_params(params_a, heads)
+    pb = _f32_params(params_b, heads)
+    mid, it_a = _fwd_math(x.float(), pa, bias_a.float()[None], heads, cdt)
+    _, it_b = _fwd_math(mid, pb, bias_b.float()[None], heads, cdt,
+                        need_out=False)
+    dmid, grads_b, dbias_b = _bwd_math(dout.float().reshape(-1, x.shape[-1]),
+                                       it_b, pb, heads, cdt,
+                                       pair_rounding=True)
+    dx, grads_a, dbias_a = _bwd_math(dmid, it_a, pa, heads, cdt,
+                                     pair_rounding=True)
+    return (dx.reshape(x.shape).to(x.dtype), grads_a, dbias_a, grads_b,
+            dbias_b)
 
 
 # -----------------------------------------------------------------
@@ -498,19 +575,23 @@ def _grouped_kernel():
                  + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 
 
-@functools.lru_cache(maxsize=None)
-def _fwd_kernel():
-    return _bind('swin_block_fwd', 'swin_block_fwd',
-                 [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 5
-                 + [ctypes.c_void_p])
+# (compute_bf16, pointer table, n_img, t, c, heads, ch, stream)
+_TABLE_ARGS = [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 5 \
+    + [ctypes.c_void_p]
 
 
 @functools.lru_cache(maxsize=None)
-def _bwd_kernel():
-    fn, name = _bind('swin_block_bwd', 'swin_block_bwd',
-                     [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 5
-                     + [ctypes.c_void_p])
-    ws = library('swin_block_bwd').swin_block_bwd_workspace
+def _fwd_kernel(stem: str):
+    """K1 (swin_block_fwd) or K3 (swin_block_pair_fwd)."""
+    return _bind(stem, stem, _TABLE_ARGS)
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_kernel(stem: str):
+    """K2 (swin_block_bwd) or K4 (swin_block_pair_bwd), with the function
+    that sizes its workspace."""
+    fn, name = _bind(stem, stem, _TABLE_ARGS)
+    ws = getattr(library(stem), f'{stem}_workspace')
     ws.argtypes = [ctypes.c_int] * 6
     ws.restype = ctypes.c_longlong
     return fn, name, ws
@@ -578,6 +659,35 @@ def _window_table(window, t, device):
     return _window_index_on(h, w, ws, shift, str(device))
 
 
+def _check_dout(x, dout):
+    if (dout.shape != x.shape or dout.dtype != x.dtype
+            or dout.device != x.device or not dout.is_contiguous()):
+        raise ValueError('dout must be contiguous and match x')
+
+
+# the backward kernels' f32 grad outputs, in their pointer-table order
+# (dbias follows)
+_GRAD_ORDER = ('dwqkv', 'dbqkv', 'dwproj', 'dw1', 'dw2', 'dbm2', 'dbm1',
+               'dg2', 'db2', 'dbproj', 'dg1', 'db1')
+
+
+def _grad_buffers(x, heads: int, ch: int):
+    """({grad name: empty f32 tensor in the kernels' padded layout},
+    dbias (heads, T, T)) of one block's backward over x (n, T, C)."""
+    _, t, c = x.shape
+    pd = _pads(c, heads, ch)
+
+    def f32(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=x.device)
+
+    ca = heads * pd.hp
+    gp = dict(dwqkv=f32(c, 3 * ca), dbqkv=f32(3 * ca), dwproj=f32(ca, c),
+              dw1=f32(c, ch), dw2=f32(ch, c), dg1=f32(c), db1=f32(c),
+              dg2=f32(c), db2=f32(c), dbproj=f32(c), dbm1=f32(pd.chp),
+              dbm2=f32(c))
+    return gp, f32(heads, t, t)
+
+
 def swin_block_fwd(x: torch.Tensor, bias: torch.Tensor, idx: torch.Tensor,
                    packed: PackedBlock, *, heads: int,
                    compute_dtype) -> torch.Tensor:
@@ -593,7 +703,7 @@ def swin_block_fwd(x: torch.Tensor, bias: torch.Tensor, idx: torch.Tensor,
     n, t, c = x.shape
     ch = packed.bm1.shape[-1]
     out = torch.empty_like(x)
-    fn, err_name = _fwd_kernel()
+    fn, err_name = _fwd_kernel('swin_block_fwd')
     ptrs = _ptrs([x, out, idx, bias, *packed])
     _launch(fn, err_name, 'swin_block_fwd',
             (int(compute_dtype == torch.bfloat16), ptrs, n, t, c, heads, ch),
@@ -620,30 +730,16 @@ def swin_block_bwd(x: torch.Tensor, dout: torch.Tensor, bias: torch.Tensor,
     _check_x(x, compute_dtype, heads)
     _check_packed(x, packed, packed_bwd)
     _check_bias_window(x, bias, idx, heads)
-    if (dout.shape != x.shape or dout.dtype != x.dtype
-            or dout.device != x.device or not dout.is_contiguous()):
-        raise ValueError('dout must be contiguous and match x')
+    _check_dout(x, dout)
     n, t, c = x.shape
-    pd = _pads(c, heads, ch)
     bf = int(compute_dtype == torch.bfloat16)
-    fn, err_name, ws_bytes = _bwd_kernel()
+    fn, err_name, ws_bytes = _bwd_kernel('swin_block_bwd')
     ws = torch.empty(int(ws_bytes(bf, n, t, c, heads, ch)),
                      dtype=torch.uint8, device=x.device)
     dx = torch.empty_like(x)
-
-    def f32(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=x.device)
-
-    ca = heads * pd.hp
-    gp = dict(dwqkv=f32(c, 3 * ca), dbqkv=f32(3 * ca), dwproj=f32(ca, c),
-              dw1=f32(c, ch), dw2=f32(ch, c), dg1=f32(c), db1=f32(c),
-              dg2=f32(c), db2=f32(c), dbproj=f32(c), dbm1=f32(pd.chp),
-              dbm2=f32(c))
-    dbias = f32(heads, t, t)
+    gp, dbias = _grad_buffers(x, heads, ch)
     ptrs = _ptrs([x, dout, dx, idx, bias, *packed, *packed_bwd, ws,
-                  gp['dwqkv'], gp['dbqkv'], gp['dwproj'], gp['dw1'],
-                  gp['dw2'], gp['dbm2'], gp['dbm1'], gp['dg2'], gp['db2'],
-                  gp['dbproj'], gp['dg1'], gp['db1'], dbias])
+                  *(gp[k] for k in _GRAD_ORDER), dbias])
     _launch(fn, err_name, 'swin_block_bwd', (bf, ptrs, n, t, c, heads, ch),
             x.device)
     swin_block_bwd.launches += 1
@@ -651,6 +747,77 @@ def swin_block_bwd(x: torch.Tensor, dout: torch.Tensor, bias: torch.Tensor,
 
 
 swin_block_bwd.launches = 0
+
+
+def swin_block_pair_fwd(x: torch.Tensor, bias_a: torch.Tensor,
+                        idx_a: torch.Tensor, packed_a: PackedBlock,
+                        bias_b: torch.Tensor, idx_b: torch.Tensor,
+                        packed_b: PackedBlock, *, heads: int,
+                        compute_dtype) -> torch.Tensor:
+    """K3 on the card: blocks A then B over (B, T, C) patches in raster
+    token order, one CTA per patch, A's output kept in f32 (a scratch
+    array allocated here) and fed to B unrounded. Each block's bias and
+    window index follow `swin_block_fwd`'s contract."""
+    _check_x(x, compute_dtype, heads)
+    _check_packed(x, packed_a, packed_b)
+    _check_bias_window(x, bias_a, idx_a, heads)
+    _check_bias_window(x, bias_b, idx_b, heads)
+    n, t, c = x.shape
+    ch = packed_a.bm1.shape[-1]
+    out = torch.empty_like(x)
+    mid = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    fn, err_name = _fwd_kernel('swin_block_pair_fwd')
+    ptrs = _ptrs([x, out, mid, idx_a, bias_a, *packed_a, idx_b, bias_b,
+                  *packed_b])
+    _launch(fn, err_name, 'swin_block_pair_fwd',
+            (int(compute_dtype == torch.bfloat16), ptrs, n, t, c, heads, ch),
+            x.device)
+    swin_block_pair_fwd.launches += 1
+    return out
+
+
+swin_block_pair_fwd.launches = 0
+
+
+def swin_block_pair_bwd(x: torch.Tensor, dout: torch.Tensor,
+                        bias_a: torch.Tensor, idx_a: torch.Tensor,
+                        packed_a: PackedBlock, packed_bwd_a: PackedBwd,
+                        bias_b: torch.Tensor, idx_b: torch.Tensor,
+                        packed_b: PackedBlock, packed_bwd_b: PackedBwd, *,
+                        heads: int, compute_dtype, ch: int):
+    """K4 on the card: recompute A (with its f32 output) and B, then B's
+    backward from dout and A's backward from B's f32 dx, with
+    `_block_bwd_math`'s rounding points. Two CUDA kernels: a per-patch
+    pass (three phases over the patch's windows) and K2's reduction pass
+    over both blocks, both deterministic. Same bias contract as
+    `swin_block_fwd`; each dbias is exactly zero off its window blocks.
+    Returns (dx in x's dtype, A's grads, A's dbias, B's grads, B's
+    dbias), grads as `swin_block_bwd` gives them."""
+    _check_x(x, compute_dtype, heads)
+    _check_packed(x, packed_a, packed_bwd_a, packed_b, packed_bwd_b)
+    _check_bias_window(x, bias_a, idx_a, heads)
+    _check_bias_window(x, bias_b, idx_b, heads)
+    _check_dout(x, dout)
+    n, t, c = x.shape
+    bf = int(compute_dtype == torch.bfloat16)
+    fn, err_name, ws_bytes = _bwd_kernel('swin_block_pair_bwd')
+    ws = torch.empty(int(ws_bytes(bf, n, t, c, heads, ch)),
+                     dtype=torch.uint8, device=x.device)
+    dx = torch.empty_like(x)
+    gp_a, dbias_a = _grad_buffers(x, heads, ch)
+    gp_b, dbias_b = _grad_buffers(x, heads, ch)
+    ptrs = _ptrs([x, dout, dx, ws,
+                  idx_a, bias_a, *packed_a, *packed_bwd_a,
+                  *(gp_a[k] for k in _GRAD_ORDER), dbias_a,
+                  idx_b, bias_b, *packed_b, *packed_bwd_b,
+                  *(gp_b[k] for k in _GRAD_ORDER), dbias_b])
+    _launch(fn, err_name, 'swin_block_pair_bwd',
+            (bf, ptrs, n, t, c, heads, ch), x.device)
+    swin_block_pair_bwd.launches += 1
+    return dx, gp_a, dbias_a, gp_b, dbias_b
+
+
+swin_block_pair_bwd.launches = 0
 
 
 def fused_swin_block_grouped(x: torch.Tensor,
@@ -715,6 +882,12 @@ fused_swin_block_grouped.launches = 0
 # -----------------------------------------------------------------
 
 
+def _packed(pk, params, pack, heads, cdt):
+    """The caller's packed weights `pk`, or `pack(params)` if it gave
+    none."""
+    return pk if pk is not None else pack(params, heads, cdt)
+
+
 class _FusedBlock(torch.autograd.Function):
     """K1 forward, K2 backward (or their plain versions). Saves only x,
     the bias and the weights, as the JAX custom VJP does, and recomputes
@@ -730,8 +903,7 @@ class _FusedBlock(torch.autograd.Function):
             return swin_block_ref(x, params, bias, heads=heads,
                                   compute_dtype=cdt)
         idx = _window_table(window, x.shape[1], x.device)
-        packed = packs[0] if packs[0] is not None else \
-            pack_block_params(params, heads, cdt)
+        packed = _packed(packs[0], params, pack_block_params, heads, cdt)
         return swin_block_fwd(x, bias, idx, packed, heads=heads,
                               compute_dtype=cdt)
 
@@ -743,11 +915,10 @@ class _FusedBlock(torch.autograd.Function):
         dout = dout.contiguous()
         if use_kernel:
             c, ch = x.shape[-1], params['mlp1_kernel'].shape[-1]
-            packed, packed_bwd = ctx.packs
-            if packed is None:
-                packed = pack_block_params(params, heads, cdt)
-            if packed_bwd is None:
-                packed_bwd = pack_block_bwd_params(params, heads, cdt)
+            packed = _packed(ctx.packs[0], params, pack_block_params, heads,
+                             cdt)
+            packed_bwd = _packed(ctx.packs[1], params, pack_block_bwd_params,
+                                 heads, cdt)
             idx = _window_table(window, x.shape[1], x.device)
             dx, gp, dbias = swin_block_bwd(
                 x, dout, bias, idx, packed, packed_bwd, heads=heads,
@@ -782,3 +953,88 @@ def fused_swin_block(x: torch.Tensor, params: Dict[str, torch.Tensor],
     cfg = (heads, compute_dtype, tuple(window), use_kernel)
     return _FusedBlock.apply(x, bias, cfg, (packed, packed_bwd),
                              *(params[k] for k in BLOCK_KEYS))
+
+
+class _FusedPair(torch.autograd.Function):
+    """K3 forward, K4 backward (or their plain versions). Saves only x,
+    both biases and both weight sets, as the JAX custom VJP does, and
+    recomputes the rest in the backward."""
+
+    @staticmethod
+    def forward(ctx, x, bias_a, bias_b, cfg, packs, *weights):
+        heads, cdt, windows, use_kernel = cfg
+        pa = dict(zip(BLOCK_KEYS, weights[:len(BLOCK_KEYS)]))
+        pb = dict(zip(BLOCK_KEYS, weights[len(BLOCK_KEYS):]))
+        ctx.cfg, ctx.packs = cfg, packs
+        ctx.save_for_backward(x, bias_a, bias_b, *weights)
+        if not use_kernel:
+            return swin_block_pair_ref(x, pa, bias_a, pb, bias_b,
+                                       heads=heads, compute_dtype=cdt)
+        idx_a, idx_b = (_window_table(w, x.shape[1], x.device)
+                        for w in windows)
+        pk_a, pk_b = (_packed(pk, p, pack_block_params, heads, cdt)
+                      for pk, p in zip(packs[0], (pa, pb)))
+        return swin_block_pair_fwd(x, bias_a, idx_a, pk_a, bias_b, idx_b,
+                                   pk_b, heads=heads, compute_dtype=cdt)
+
+    @staticmethod
+    def backward(ctx, dout):
+        heads, cdt, windows, use_kernel = ctx.cfg
+        x, bias_a, bias_b, *weights = ctx.saved_tensors
+        pa = dict(zip(BLOCK_KEYS, weights[:len(BLOCK_KEYS)]))
+        pb = dict(zip(BLOCK_KEYS, weights[len(BLOCK_KEYS):]))
+        dout = dout.contiguous()
+        if use_kernel:
+            c, ch = x.shape[-1], pa['mlp1_kernel'].shape[-1]
+            pk_a, pk_b = (_packed(pk, p, pack_block_params, heads, cdt)
+                          for pk, p in zip(ctx.packs[0], (pa, pb)))
+            pbw_a, pbw_b = (_packed(pk, p, pack_block_bwd_params, heads, cdt)
+                            for pk, p in zip(ctx.packs[1], (pa, pb)))
+            idx_a, idx_b = (_window_table(w, x.shape[1], x.device)
+                            for w in windows)
+            dx, gp_a, dbias_a, gp_b, dbias_b = swin_block_pair_bwd(
+                x, dout, bias_a, idx_a, pk_a, pbw_a, bias_b, idx_b, pk_b,
+                pbw_b, heads=heads, compute_dtype=cdt, ch=ch)
+            grads_a = unpack_block_grads(gp_a, heads, c, ch)
+            grads_b = unpack_block_grads(gp_b, heads, c, ch)
+        else:
+            dx, grads_a, dbias_a, grads_b, dbias_b = swin_block_pair_bwd_ref(
+                x, dout, pa, bias_a, pb, bias_b, heads=heads,
+                compute_dtype=cdt)
+        return (dx, dbias_a, dbias_b, None, None,
+                *(grads_a[k].to(pa[k].dtype) for k in BLOCK_KEYS),
+                *(grads_b[k].to(pb[k].dtype) for k in BLOCK_KEYS))
+
+
+def fused_swin_block_pair(x: torch.Tensor, params_a: Dict[str, torch.Tensor],
+                          bias_a: torch.Tensor,
+                          params_b: Dict[str, torch.Tensor],
+                          bias_b: torch.Tensor, *, heads: int,
+                          windows: Tuple[Tuple[int, int, int, int],
+                                         Tuple[int, int, int, int]],
+                          compute_dtype=torch.bfloat16, packed=(None, None),
+                          packed_bwd=(None, None),
+                          plain: bool = False) -> torch.Tensor:
+    """Two chained Swin blocks A, B with their backward (K3 + K4), the
+    counterpart of the JAX `fused_swin_block_pair`: A's output reaches B
+    in f32, and the backward rounds as `_block_bwd_math` does.
+
+    x: (B, T, C) in raster token order; params_a / params_b: each
+    block's f32 model parameters (BLOCK_KEYS); bias_a / bias_b: (nh, T,
+    T) f32 from build_attn_bias for windows[0] / windows[1] = (h, w, ws,
+    shift), with -1e9 on every pair outside a window. Grads as
+    `fused_swin_block`'s, for both blocks.
+
+    On CPU tensors (or with plain=True, which only a measurement uses to
+    compare paths) it runs `swin_block_pair_ref` /
+    `swin_block_pair_bwd_ref`. On a CUDA tensor it launches K3 and, in
+    the backward, K4, or raises. `packed` / `packed_bwd` hold each
+    block's pack_block_params / pack_block_bwd_params (or None) and save
+    the per-call weight layout work."""
+    use_kernel = x.device.type != 'cpu' and not plain
+    cfg = (heads, compute_dtype, tuple(tuple(w) for w in windows),
+           use_kernel)
+    return _FusedPair.apply(x, bias_a, bias_b, cfg,
+                            (tuple(packed), tuple(packed_bwd)),
+                            *(params_a[k] for k in BLOCK_KEYS),
+                            *(params_b[k] for k in BLOCK_KEYS))

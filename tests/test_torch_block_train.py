@@ -124,6 +124,150 @@ def test_plain_block_and_grads_match_jax_kernel(dt, shift):
         _close(k, pt[k].grad, dp_j[k.replace('_weight', '_scale')], dt)
 
 
+def _rnd(v, cdt):
+    return v.to(cdt).float()
+
+
+def _ln(z):
+    mu = z.mean(-1, keepdim=True)
+    rstd = torch.rsqrt(((z - mu) ** 2).mean(-1, keepdim=True) + tsb.LN_EPS)
+    return (z - mu) * rstd, rstd
+
+
+def _ln_bwd(dy, g_, xh, rstd):
+    dxh = dy * g_
+    return (dxh - dxh.mean(-1, keepdim=True)
+            - xh * (dxh * xh).mean(-1, keepdim=True)) * rstd
+
+
+def _pad(z, n):
+    return torch.nn.functional.pad(z, (0, n - z.shape[-1]))
+
+
+def emu_layout(pk, pb, heads, c, ch, cdt):
+    """One block's packed, zero-padded weights (as f32) and widths, as
+    the kernels see them."""
+    pd = tsb._pads(c, heads, ch)
+    return dict(hp=pd.hp, ck=pd.ck, ca=heads * pd.hp, chp=pd.chp, c=c,
+                ch=ch, heads=heads, cdt=cdt,
+                f={k: v.float() for k, v in pk._asdict().items()},
+                fb={k: v.float() for k, v in pb._asdict().items()})
+
+
+def emu_window_fwd(L, xw, bias, tok):
+    """The block body of csrc/swin_block_common.cuh over one 64-token
+    window: f32 rows xw of the window whose raster tokens are tok, the
+    window's 64x64 slice of the bias, products `act @ W^T` on the packed
+    layouts, the kernels' rounding points. Returns (the block output
+    rows in f32, unrounded; the saved per-token operands)."""
+    f, cdt, heads = L['f'], L['cdt'], L['heads']
+    hp, ck, ca, c = L['hp'], L['ck'], L['ca'], L['c']
+    xh1, rstd1 = _ln(xw)
+    y = _pad(_rnd(xh1 * f['g1'] + f['b1'], cdt), ck)
+    o = torch.zeros(64, ca)
+    qkv = torch.zeros(64, 3 * ca)
+    for h in range(heads):
+        z = _rnd(_rnd(y @ f['wqkv'][h].reshape(3 * hp, ck).T, cdt)
+                 + f['bqkv'][h].reshape(3 * hp), cdt)
+        q, k, v = z[:, :hp], z[:, hp:2 * hp], z[:, 2 * hp:]
+        for part, val in enumerate((q, k, v)):
+            qkv[:, (part * heads + h) * hp:
+                (part * heads + h + 1) * hp] = val
+        s = q @ k.T + bias[h][tok][:, tok]
+        e = torch.exp(s - s.amax(-1, keepdim=True))
+        o[:, h * hp:(h + 1) * hp] = _rnd(
+            (_rnd(e, cdt) @ v) * (1.0 / e.sum(-1, keepdim=True)), cdt)
+    x2 = xw + ((o @ f['wproj'].T)[:, :c] + f['bproj'])
+    xh2, rstd2 = _ln(x2)
+    y2 = _pad(_rnd(xh2 * f['g2'] + f['b2'], cdt), ck)
+    u = _rnd(_rnd(y2 @ f['w1'].T, cdt) + f['bm1'], cdt)
+    hact = tsb._gelu(u.to(cdt)).float()
+    out = x2 + ((hact @ f['w2'].T)[:, :c] + f['bm2'])
+    return out, dict(xh1=xh1, rstd1=rstd1, y=y, qkv=qkv, o=o, xh2=xh2,
+                     rstd2=rstd2, y2=y2, u=u, hact=hact)
+
+
+def emu_window_bwd(L, g, sv, bias, tok, pair_rounding):
+    """The window backward of csrc/swin_block_bwd_common.cuh from the f32
+    incoming grad rows g (unrounded in dbm2 and dx2, rounded in the
+    products) and emu_window_fwd's operands, with K2's rounding set or,
+    with pair_rounding, the pair's (_block_bwd_math's). Returns (dx rows
+    in f32, the window's terms of every weight grad sum, ds (heads, 64,
+    64))."""
+    f, fb, cdt, heads = L['f'], L['fb'], L['cdt'], L['heads']
+    hp, ck, ca, c, ch = L['hp'], L['ck'], L['ca'], L['c'], L['ch']
+    g = _pad(g, ck)
+    gt = _rnd(g, cdt)
+    u = sv['u'].to(cdt)
+    du = (gt @ fb['w2_t'].T) * tsb._gelu_grad(u, tsb._gelu_tanh(u)).float()
+    du_c = _rnd(du, cdt)
+    dy2 = (du_c @ fb['w1_t'].T)[:, :c]
+    dx2 = g[:, :c] + _ln_bwd(dy2, f['g2'], sv['xh2'], sv['rstd2'])
+    dx2_c = _pad(_rnd(dx2, cdt), ck)
+    do = _rnd(dx2_c @ fb['wproj_t'].T, cdt)
+    dqkv = torch.zeros(64, 3 * ca)
+    ds_all = torch.zeros(heads, 64, 64)
+    for h in range(heads):
+        def blk(part):
+            lo = (part * heads + h) * hp
+            return slice(lo, lo + hp)
+        qkv = sv['qkv']
+        q, k, v = qkv[:, blk(0)], qkv[:, blk(1)], qkv[:, blk(2)]
+        doh = do[:, h * hp:(h + 1) * hp]
+        s = q @ k.T + bias[h][tok][:, tok]
+        e = torch.exp(s - s.amax(-1, keepdim=True))
+        inv = 1.0 / e.sum(-1, keepdim=True)
+        pr = e * (inv if pair_rounding else _rnd(inv, cdt))
+        dp = doh @ v.T
+        dqkv[:, blk(2)] = _rnd(_rnd(pr, cdt).T @ doh, cdt)
+        if pair_rounding:
+            ds = pr * (dp - (dp * pr).sum(-1, keepdim=True))
+        else:
+            dp = _rnd(dp, cdt)
+            rs = _rnd((dp * pr).sum(-1, keepdim=True), cdt)
+            ds = pr * _rnd(dp - rs, cdt)
+        ds_all[h] = ds
+        dqkv[:, blk(0)] = _rnd(_rnd(ds, cdt) @ k, cdt)
+        dqkv[:, blk(1)] = _rnd(_rnd(ds, cdt).T @ q, cdt)
+    dy = (dqkv @ fb['wqkv_t'].T)[:, :c]
+    dx = dx2 + _ln_bwd(dy, f['g1'], sv['xh1'], sv['rstd1'])
+    ones = torch.ones(64, 1)
+    terms = dict(
+        dwqkv=torch.cat([sv['y'][:, :c], ones], 1).T @ dqkv,
+        dwproj=sv['o'].T @ dx2_c[:, :c], dw1=sv['y2'][:, :c].T @ du_c[:, :ch],
+        dw2=sv['hact'][:, :ch].T @ gt[:, :c], dbm2=g[:, :c].sum(0),
+        dbm1=du.sum(0), dg2=(dy2 * sv['xh2']).sum(0), db2=dy2.sum(0),
+        dbproj=dx2.sum(0), dg1=(dy * sv['xh1']).sum(0), db1=dy.sum(0))
+    return dx, terms, ds_all
+
+
+class EmuGrads:
+    """The reduction pass: every window's terms summed into the weight
+    grads (in the kernels' padded layout) and ds into dbias."""
+
+    def __init__(self, L, bias):
+        c, ca = L['c'], L['ca']
+        self.c = c
+        self.gp = dict(dwqkv=torch.zeros(c + 1, 3 * ca),
+                       dwproj=torch.zeros(ca, c),
+                       dw1=torch.zeros(c, L['ch']), dw2=torch.zeros(L['ch'], c),
+                       dbm1=torch.zeros(L['chp']), **{k: torch.zeros(c) for k in (
+                           'dg1', 'db1', 'dg2', 'db2', 'dbproj', 'dbm2')})
+        self.dbias = torch.zeros_like(bias)
+
+    def add(self, terms, ds, tok):
+        for k, v in terms.items():
+            self.gp[k] += v
+        for h in range(ds.shape[0]):
+            self.dbias[h][tok[:, None], tok[None, :]] += ds[h]
+
+    def result(self):
+        gp = dict(self.gp)
+        gp['dbqkv'] = gp['dwqkv'][self.c]
+        gp['dwqkv'] = gp['dwqkv'][:self.c]
+        return gp, self.dbias
+
+
 def _emulate_kernels(x, dout, bias, idx, pk, pb, heads, c, ch, cdt):
     """What csrc/swin_block_fwd.cu and csrc/swin_block_bwd.cu compute, in
     PyTorch: per 64-token window read through the window index table,
@@ -132,102 +276,18 @@ def _emulate_kernels(x, dout, bias, idx, pk, pb, heads, c, ch, cdt):
     weight grads as sums over every window of the per-token operands,
     the bias grad as the windows' ds summed over patches. Returns
     (out, dx, grads in the kernels' padded layout, dbias)."""
-    pd = tsb._pads(c, heads, ch)
-    hp, ck, ca, chp = pd.hp, pd.ck, heads * pd.hp, pd.chp
-    f = {k: v.float() for k, v in pk._asdict().items()}
-    fb = {k: v.float() for k, v in pb._asdict().items()}
-
-    def rnd(v):
-        return v.to(cdt).float()
-
-    def ln(z):
-        mu = z.mean(-1, keepdim=True)
-        rstd = torch.rsqrt(((z - mu) ** 2).mean(-1, keepdim=True)
-                           + tsb.LN_EPS)
-        return (z - mu) * rstd, rstd
-
-    def ln_bwd(dy, g_, xh, rstd):
-        dxh = dy * g_
-        return (dxh - dxh.mean(-1, keepdim=True)
-                - xh * (dxh * xh).mean(-1, keepdim=True)) * rstd
-
-    def pad(z, n):
-        return torch.nn.functional.pad(z, (0, n - z.shape[-1]))
-
+    L = emu_layout(pk, pb, heads, c, ch, cdt)
     out, dx = torch.empty_like(x), torch.empty_like(x)
-    gp = dict(dwqkv=torch.zeros(c + 1, 3 * ca), dwproj=torch.zeros(ca, c),
-              dw1=torch.zeros(c, ch), dw2=torch.zeros(ch, c),
-              dbm1=torch.zeros(chp), **{k: torch.zeros(c) for k in (
-                  'dg1', 'db1', 'dg2', 'db2', 'dbproj', 'dbm2')})
-    dbias = torch.zeros_like(bias)
+    acc = EmuGrads(L, bias)
     for b in range(x.shape[0]):
         for tok in idx.long():
-            xw = x[b, tok].float()
-            xh1, rstd1 = ln(xw)
-            y = pad(rnd(xh1 * f['g1'] + f['b1']), ck)
-            o = torch.zeros(64, ca)
-            qkv = torch.zeros(64, 3 * ca)
-            for h in range(heads):
-                z = rnd(rnd(y @ f['wqkv'][h].reshape(3 * hp, ck).T)
-                        + f['bqkv'][h].reshape(3 * hp))
-                q, k, v = z[:, :hp], z[:, hp:2 * hp], z[:, 2 * hp:]
-                for part, val in enumerate((q, k, v)):
-                    qkv[:, (part * heads + h) * hp:
-                        (part * heads + h + 1) * hp] = val
-                s = q @ k.T + bias[h][tok][:, tok]
-                e = torch.exp(s - s.amax(-1, keepdim=True))
-                o[:, h * hp:(h + 1) * hp] = rnd(
-                    (rnd(e) @ v) * (1.0 / e.sum(-1, keepdim=True)))
-            x2 = xw + ((o @ f['wproj'].T)[:, :c] + f['bproj'])
-            xh2, rstd2 = ln(x2)
-            y2 = pad(rnd(xh2 * f['g2'] + f['b2']), ck)
-            u = rnd(rnd(y2 @ f['w1'].T) + f['bm1'])
-            hact = tsb._gelu(u.to(cdt)).float()
-            out[b, tok] = (x2 + ((hact @ f['w2'].T)[:, :c]
-                                 + f['bm2'])).to(x.dtype)
-            # backward
-            g = pad(dout[b, tok].float(), ck)
-            th = tsb._gelu_tanh(u.to(cdt))
-            du = (g @ fb['w2_t'].T) * tsb._gelu_grad(u.to(cdt), th).float()
-            du_c = rnd(du)
-            dy2 = (du_c @ fb['w1_t'].T)[:, :c]
-            dx2 = g[:, :c] + ln_bwd(dy2, f['g2'], xh2, rstd2)
-            dx2_c = pad(rnd(dx2), ck)
-            do = rnd(dx2_c @ fb['wproj_t'].T)
-            dqkv = torch.zeros(64, 3 * ca)
-            for h in range(heads):
-                def blk(part):
-                    lo = (part * heads + h) * hp
-                    return slice(lo, lo + hp)
-                q, k, v = qkv[:, blk(0)], qkv[:, blk(1)], qkv[:, blk(2)]
-                doh = do[:, h * hp:(h + 1) * hp]
-                s = q @ k.T + bias[h][tok][:, tok]
-                e = torch.exp(s - s.amax(-1, keepdim=True))
-                pr = e * rnd(1.0 / e.sum(-1, keepdim=True))
-                dp = rnd(doh @ v.T)
-                dqkv[:, blk(2)] = rnd(rnd(pr).T @ doh)
-                rs = rnd((dp * pr).sum(-1, keepdim=True))
-                ds = pr * rnd(dp - rs)
-                dbias[h][tok[:, None], tok[None, :]] += ds
-                dqkv[:, blk(0)] = rnd(rnd(ds) @ k)
-                dqkv[:, blk(1)] = rnd(rnd(ds).T @ q)
-            dy = (dqkv @ fb['wqkv_t'].T)[:, :c]
-            dx[b, tok] = (dx2 + ln_bwd(dy, f['g1'], xh1, rstd1)).to(x.dtype)
-            ones = torch.ones(64, 1)
-            gp['dwqkv'] += torch.cat([y[:, :c], ones], 1).T @ dqkv
-            gp['dwproj'] += o.T @ dx2_c[:, :c]
-            gp['dw1'] += y2[:, :c].T @ du_c[:, :ch]
-            gp['dw2'] += hact[:, :ch].T @ g[:, :c]
-            gp['dbm2'] += g[:, :c].sum(0)
-            gp['dbm1'] += du.sum(0)
-            gp['dg2'] += (dy2 * xh2).sum(0)
-            gp['db2'] += dy2.sum(0)
-            gp['dbproj'] += dx2.sum(0)
-            gp['dg1'] += (dy * xh1).sum(0)
-            gp['db1'] += dy.sum(0)
-    gp['dbqkv'] = gp['dwqkv'][c]
-    gp['dwqkv'] = gp['dwqkv'][:c]
-    return out, dx, gp, dbias
+            o, sv = emu_window_fwd(L, x[b, tok].float(), bias, tok)
+            out[b, tok] = o.to(x.dtype)
+            d, terms, ds = emu_window_bwd(L, dout[b, tok].float(), sv, bias,
+                                          tok, pair_rounding=False)
+            dx[b, tok] = d.to(x.dtype)
+            acc.add(terms, ds, tok)
+    return (out, dx) + acc.result()
 
 
 @pytest.mark.parametrize('h,w,shift', [(16, 16, 0), (16, 16, 4),

@@ -49,14 +49,14 @@ def _grads_close(name, got, ref):
     assert err <= 1e-4 * np.abs(ref).max() + 1e-6, (name, err)
 
 
-def _stack_pair(hw, mode):
+def _stack_pair(hw, mode, depth=D):
     """(JAX stack, its params as numpy, port stack with them, input)."""
-    jm = JStack(C, D, NH, WS, 2.0, use_pallas=mode)
+    jm = JStack(C, depth, NH, WS, 2.0, use_pallas=mode)
     x = np.random.default_rng(1).normal(0, 1, (2, *hw, C)).astype(np.float32)
     p = jax.jit(lambda k: jm.init(k, jnp.asarray(x))['params'])(
         jax.random.key(0))
     pn = jax.tree.map(np.asarray, p)
-    tm = FusedBlockStack(C, D, NH, WS, 2.0, device='cpu')
+    tm = FusedBlockStack(C, depth, NH, WS, 2.0, device='cpu')
     tm.load_state_dict({k.replace('_scale', '_weight'):
                         torch.from_numpy(np.array(v))
                         for k, v in pn.items()})
@@ -79,11 +79,30 @@ def _stack_grads(jm, pn, tm, x):
         _grads_close(k, getattr(tm, k.replace('_scale', '_weight')).grad, v)
 
 
-def test_stack_training_grads_match_jax():
+@pytest.mark.parametrize('pair,depth', [(False, D), (True, D), (True, 3)])
+def test_stack_training_grads_match_jax(monkeypatch, pair, depth):
     """T = 64 <= 256: the fused path (plain K1 / K2 through the autograd
     Function, the bias grad through build_attn_bias's gather into the
-    bias tables) against the Pallas path in interpret mode."""
-    _stack_grads(*_stack_pair((8, 8), 'interpret'))
+    bias tables) against the Pallas path in interpret mode. With
+    SRCACO2_SWIN_PAIR=1, read by both stacks, an even depth runs its
+    blocks as (no-shift, shift) pairs (plain K3 / K4 against the Pallas
+    pair kernel) and an odd depth keeps the per-block path, as in JAX."""
+    monkeypatch.setenv('SRCACO2_SWIN_PAIR', '1' if pair else '0')
+    jm, pn, tm, x = _stack_pair((8, 8), 'interpret', depth)
+    assert tm.pair == pair
+    calls = {'pair': 0, 'block': 0}
+
+    def counted(op, name):
+        def run(*a, **k):
+            calls[name] += 1
+            return op(*a, **k)
+        return run
+    monkeypatch.setattr(tm, 'pair_op', counted(tm.pair_op, 'pair'))
+    monkeypatch.setattr(tm, 'fused_op', counted(tm.fused_op, 'block'))
+    _stack_grads(jm, pn, tm, x)
+    paired = pair and depth % 2 == 0
+    assert calls == {'pair': depth // 2 if paired else 0,
+                     'block': 0 if paired else depth}
 
 
 def test_training_never_takes_the_tiled_path(monkeypatch):
