@@ -26,11 +26,27 @@ non-zero:
                 the same shapes (blocks with shifts 0 and 4), f32 and bf16
   kernel_time_pair    median ms of K3 and K4 and of their plain versions
                 beside their bounds
+  kernel_check_wmsa   K6 (windowed attention forward) against its plain
+                version, f32 and bf16: the eval shape (512 windows of 64
+                tokens, C=180, 6 heads) with no mask and with the shift-4
+                mask of a 64x64 image, and JAX's test shape (12 windows,
+                4 heads of 16, a random 0/-100 mask per window); K6
+                raises under grad
+  kernel_time_wmsa    median ms of K6 and its plain version beside its
+                bound, and of F.scaled_dot_product_attention on the same
+                q, k, v with a prebuilt additive mask (the library time)
   serve         the x8 SwinIR flagship (bf16, random seeded weights, full
                 depth) served through SRServer: 3 requests, one with a
                 ragged tail; launch counts of the main path; images/s;
                 plain-path vs kernel-path agreement
   serve_profile device time of one served batch by kernel (torch.profiler)
+  eval_unfused  the unfused x8 flagship (use_pallas_attn, bf16, random
+                seeded weights, full depth) through make_eval_forward at
+                batch 8 on 64x64 LR: 36 K6 launches per forward and no
+                K1-K5; images/s, ms per batch, peak memory; the K6 path no
+                further from an f32 plain-path reference than the bf16
+                plain path; the metrics on the card against the CPU
+  eval_unfused_profile  device time of one eval forward by kernel
   train_compare one step's loss and grads through the kernels against the
                 plain versions (batch 16, bf16 and f32) from the flagship's
                 seeded initial weights
@@ -47,7 +63,7 @@ non-zero:
                 launch counts (18 K3, 18 K4, 0 K1, K2 or K5 per step),
                 ms/step, patches/s, peak memory, loss, flags
   train_pair_profile  device time of one pair step by kernel
-  kernels       the kernels line (one JSON object)
+  kernels       the kernels line (K1-K6, one JSON object)
 followed by the nvidia-smi line and, last, the {"ok": true, ...} line.
 Imports nothing of JAX or of the JAX package.
 """
@@ -88,6 +104,15 @@ BWD_FLOPS_PER_TOKEN = (2 * (3 * C * C + C * C + C * CH) + 2 * 2 * WS * WS * C
 # training step (bench.py:77-126): batch 128 of 16x16 LR patches (h_size
 # 128 at x8), T = 256 tokens per patch; 256 synthetic 512^2 HR images
 TRAIN_B, PATCH, H_SIZE, N_IMG = 128, 16, 128, 256
+# K6 at the eval shape: the flagship's 64-token windows over batch 8 at
+# 64x64 LR
+WMSA_W, WMSA_N = BATCH * (LR // WS) ** 2, WS * WS
+WMSA_TOL = {
+    # f32: only the order of the f32 sums differs (the JAX test's bound)
+    'f32': dict(atol=2e-5, rtol=0.0),
+    # bf16: both round the f32 result once, so one output ulp
+    'bf16': dict(atol=1e-2, rtol=2.0 ** -7),
+}
 TRAIN_TOL = {
     # f32: only the order of f32 sums differs (K <= 360 inside a
     # window, 32768 tokens in the weight grads)
@@ -505,6 +530,10 @@ def smem_bytes(build):
         fn.restype = ctypes.c_longlong
         out[stem] = {dt: int(fn(bf, C, HEADS, CH))
                      for dt, bf in (('bf16', 1), ('f32', 0))}
+    fn = build.library('window_attention').window_attention_smem
+    fn.argtypes = [ctypes.c_int] * 2
+    fn.restype = ctypes.c_longlong
+    out['window_attention'] = int(fn(C, HEADS))
     return out
 
 
@@ -570,12 +599,24 @@ def block_stacks(model, pair=None):
     return stacks
 
 
-def reset_launches():
+def kernel_wrappers():
+    """{short name: wrapper} of every kernel, K1-K6."""
     from srcaco2_tpu_torch.ops import swin_block as sb
-    for fn in (sb.swin_block_fwd, sb.swin_block_bwd,
-               sb.swin_block_pair_fwd, sb.swin_block_pair_bwd,
-               sb.fused_swin_block_grouped):
+    from srcaco2_tpu_torch.ops import window_attention as wa
+    return dict(fwd=sb.swin_block_fwd, bwd=sb.swin_block_bwd,
+                pair_fwd=sb.swin_block_pair_fwd,
+                pair_bwd=sb.swin_block_pair_bwd,
+                grouped=sb.fused_swin_block_grouped,
+                wmsa=wa.window_attention)
+
+
+def reset_launches():
+    for fn in kernel_wrappers().values():
         fn.launches = 0
+
+
+def read_launches():
+    return {k: fn.launches for k, fn in kernel_wrappers().items()}
 
 
 def train_phase(ctx, smi, steps=10, pair=False):
@@ -584,7 +625,6 @@ def train_phase(ctx, smi, steps=10, pair=False):
     step, then `steps` timed steps with the launch counts read around
     them."""
     import torch
-    from srcaco2_tpu_torch.ops import swin_block as sb
     step, state, cfg = ctx['step'], ctx['state'], ctx['cfg']
     hr, lr, gen, model = ctx['hr'], ctx['lr'], ctx['gen'], ctx['model']
     stacks = block_stacks(model, pair)
@@ -604,11 +644,7 @@ def train_phase(ctx, smi, steps=10, pair=False):
         flags = flags + holder['_flags']
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = dict(fwd=sb.swin_block_fwd.launches,
-                    bwd=sb.swin_block_bwd.launches,
-                    pair_fwd=sb.swin_block_pair_fwd.launches,
-                    pair_bwd=sb.swin_block_pair_bwd.launches,
-                    grouped=sb.fused_swin_block_grouped.launches)
+    launches = read_launches()
     n_blocks = sum(m.depth for m in stacks)
     rec = dict(
         model='SwinIR x8 pixelshuffledirect C=180 6x6 heads 6 ws 8, bf16 '
@@ -632,7 +668,7 @@ def train_phase(ctx, smi, steps=10, pair=False):
           and launches['bwd'] == per_block
           and launches['pair_fwd'] == per_pair
           and launches['pair_bwd'] == per_pair
-          and launches['grouped'] == 0)
+          and launches['grouped'] == 0 and launches['wmsa'] == 0)
     return rec, ok
 
 
@@ -687,6 +723,227 @@ def compare_paths(dev, ctx, n=16, pair=False):
     del f32_model
     return (dict(batch=n, blocks='pairs' if pair else 'one by one', **out),
             all(v['ok'] for v in out.values()))
+
+
+def wmsa_cases(dev, gen):
+    """K6's check cases: (name, qkv (W, N, 3C) f32, bias (heads, N, N)
+    f32, mask (nW, N, N) or None, heads), unit-variance inputs."""
+    import torch
+    from srcaco2_tpu_torch.models.swinir import shift_attn_mask
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen).to(dev)
+
+    qkv, bias = randn(WMSA_W, WMSA_N, 3 * C), randn(HEADS, WMSA_N, WMSA_N)
+    shift = torch.as_tensor(shift_attn_mask(LR, LR, WS, WS // 2)).to(dev)
+    small = torch.where(torch.rand((12, 64, 64), generator=gen) < 0.2,
+                        -100.0, 0.0).to(dev)
+    return [('eval_no_mask', qkv, bias, None, HEADS),
+            ('eval_shift_mask', qkv, bias, shift, HEADS),
+            ('jax_test_w12', randn(12, 64, 3 * 64), randn(4, 64, 64), small,
+             4)]
+
+
+def kernel_check_wmsa(dev, gen):
+    """K6 against its plain version on every case of wmsa_cases, f32 and
+    bf16 (bias in the compute dtype, as the model hands it over), under
+    WMSA_TOL; and K6 raises when autograd would need its gradient."""
+    import torch
+    from srcaco2_tpu_torch.ops import window_attention as wa
+    recs, ok = [], True
+    cases = wmsa_cases(dev, gen)
+    for name, qkv, bias, mask, heads in cases:
+        for dt_name, dt in (('f32', torch.float32), ('bf16', torch.bfloat16)):
+            q, b = qkv.to(dt), bias.to(dt)
+            out_k = wa.window_attention(q, b, mask, heads=heads)
+            torch.cuda.synchronize()
+            out_r = wa.window_attention_ref(q, b, mask, heads)
+            diff = (out_k.float() - out_r.float()).abs()
+            tol = WMSA_TOL[dt_name]
+            bad = int((diff > tol['atol']
+                       + tol['rtol'] * out_r.float().abs()).sum())
+            finite = bool(torch.isfinite(out_k.float()).all())
+            rec = dict(case=name, dtype=dt_name, shape=list(q.shape),
+                       heads=heads,
+                       n_mask=None if mask is None else mask.shape[0],
+                       max_abs_err=float(diff.max()), n_outside=bad,
+                       finite=finite, ok=bad == 0 and finite, **tol)
+            recs.append(rec)
+            ok = ok and rec['ok']
+    q = cases[2][1].clone().requires_grad_(True)
+    try:
+        wa.window_attention(q, torch.zeros(4, 64, 64, device=dev), None,
+                            heads=4)
+        raised = False
+    except RuntimeError as e:       # the refusal, not any other fault
+        raised = 'no backward' in str(e)
+    recs.append(dict(case='raises_under_grad', ok=raised))
+    return recs, ok and raised
+
+
+def kernel_time_wmsa(dev, gen):
+    """Median ms of K6 (bf16, the eval shape, with the shift mask and
+    without) and of its plain version, beside the bound; and the library
+    time: F.scaled_dot_product_attention on the same q, k, v split into
+    (W, heads, N, hd) with the (W, heads, N, N) additive bias + mask
+    built beforehand (not timed)."""
+    import torch
+    import torch.nn.functional as F
+    from srcaco2_tpu_torch.ops import window_attention as wa
+    dt = torch.bfloat16
+    _, qkv, bias, mask, _ = wmsa_cases(dev, gen)[1]
+    q, b = qkv.to(dt), bias.to(dt)
+    ms = cuda_ms(lambda: wa.window_attention(q, b, mask, heads=HEADS))
+    ms_no_mask = cuda_ms(lambda: wa.window_attention(q, b, None,
+                                                     heads=HEADS))
+    plain_ms = cuda_ms(lambda: wa.window_attention_ref(q, b, mask, HEADS),
+                       reps=3, per=3)
+    w, n, hd = WMSA_W, WMSA_N, C // HEADS
+    qs, ks, vs = (t.contiguous() for t in
+                  q.reshape(w, n, 3, HEADS, hd).permute(2, 0, 3, 1, 4))
+    win = torch.arange(w, device=dev) % mask.shape[0]
+    am = (b.float()[None] + mask[win][:, None]).to(dt).contiguous()
+    lib = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=am)
+    lib_err = float((lib.permute(0, 2, 1, 3).reshape(w, n, C).float()
+                     - wa.window_attention_ref(q, b, mask, HEADS).float())
+                    .abs().max())
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, attn_mask=am))
+    nbytes = (q.numel() * q.element_size() + w * n * C * q.element_size()
+              + b.numel() * b.element_size()
+              + mask.numel() * mask.element_size())
+    bnd = bound(4 * w * HEADS * n * n * hd, nbytes)
+    return dict(kernel='window_attention', dtype='bf16', shape=list(q.shape),
+                heads=HEADS, mask='shift 4 of a 64x64 image (nW=64)', ms=ms,
+                ms_no_mask=ms_no_mask, plain_ms=plain_ms,
+                library='F.scaled_dot_product_attention, prebuilt bf16 '
+                '(W, heads, N, N) mask', library_ms=library_ms,
+                library_vs_plain_max_abs=lib_err, **bnd,
+                tflops=bnd['flops'] / ms / 1e9,
+                gbytes_per_s=nbytes / ms / 1e6)
+
+
+def unfused_flagship(dev, dtype):
+    """The x8 flagship with unfused blocks and K6's attention core
+    (use_pallas_attn), random weights from seed 0, evaluation mode."""
+    import torch
+    from srcaco2_tpu_torch.models.swinir import SwinIR
+    model = SwinIR(in_chans=1, upscale=SCALE, window_size=WS, embed_dim=C,
+                   depths=(6,) * 6, num_heads=(HEADS,) * 6, mlp_ratio=2.0,
+                   upsampler='pixelshuffledirect', dtype=dtype,
+                   fused_blocks=False, use_pallas_attn=True, device=dev)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    return model.eval()
+
+
+def set_attn_op(model, op):
+    from srcaco2_tpu_torch.models.swinir import WindowAttention
+    for m in model.modules():
+        if isinstance(m, WindowAttention):
+            m.attn_op = op
+
+
+def eval_unfused(dev, smi, iters=10):
+    """make_eval_forward over the unfused flagship (bf16) at batch 8 on
+    64x64 LR: a warm-up forward, then `iters` timed forwards with the
+    launch counts read around them; the K6 path and the plain path
+    against an f32 plain-path reference; the eval metrics (border =
+    scale, ROI over thresholds 4..10) of the prediction against a random
+    HR batch, on the card and on the CPU."""
+    import numpy as np
+    import torch
+    from srcaco2_tpu_torch import constants
+    from srcaco2_tpu_torch.models.swinir import WindowAttention
+    from srcaco2_tpu_torch.ops import window_attention as wa
+    from srcaco2_tpu_torch.train import evaluator as E
+    from srcaco2_tpu_torch.train.steps import make_eval_forward
+    model = unfused_flagship(dev, torch.bfloat16)
+    n_attn = sum(isinstance(m, WindowAttention) for m in model.modules())
+    fwd = make_eval_forward(model, 'SwinIR', SCALE)
+    rng = np.random.default_rng(1)
+    lr_u8 = rng.integers(0, 256, (BATCH, 1, LR, LR), dtype=np.uint8)
+    hr_u8 = rng.integers(0, 256, (BATCH, 1, LR * SCALE, LR * SCALE),
+                         dtype=np.uint8)
+    batch = {'l_im': torch.from_numpy(lr_u8).to(dev).float() / 255.0}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fwd(None, batch)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        pred = fwd(None, batch)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+
+    def plain_op(qkv, bias, mask, *, heads):
+        return wa.window_attention_ref(qkv, bias, mask, heads)
+
+    with torch.inference_mode():
+        y_k = model(batch['l_im'])
+        set_attn_op(model, plain_op)
+        y_p = model(batch['l_im'])
+        set_attn_op(model, wa.window_attention)
+        allow = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        ref = unfused_flagship(dev, torch.float32)
+        ref.load_state_dict(model.state_dict())
+        set_attn_op(ref, plain_op)
+        y_32 = ref(batch['l_im'])
+        torch.backends.cudnn.allow_tf32 = allow
+        del ref
+    err_k, err_p = (y_k - y_32).abs(), (y_p - y_32).abs()
+    finite = bool(torch.isfinite(y_k).all() and torch.isfinite(y_p).all())
+    close = bool(err_k.mean() <= 1.25 * err_p.mean()
+                 and err_k.max() <= 2.0 * err_p.max())
+
+    ths = tuple(constants.ROI_THRESH)
+    hr = torch.from_numpy(hr_u8).to(dev).float()
+    m_card = E.make_metric_fn(SCALE, True, ths)(pred, hr)
+    m_cpu = E.make_metric_fn(SCALE, True, ths)(pred.cpu(), hr.cpu())
+    tol = {'psnr': 1e-3, 'psnr_y': 1e-3, 'mse': 1e-2, 'nrmse': 1e-6,
+           'ssim': 1e-5}
+    metrics, metrics_ok = {}, True
+    for part in ('full', 'roi'):
+        for k, v in m_card[part].items():
+            a, c = v.cpu().double(), m_cpu[part][k].double()
+            err = float((a - c).abs().max())
+            good = (bool(torch.isfinite(a).all())
+                    and err <= tol[k] + 1e-5 * float(c.abs().max()))
+            metrics[f'{part}_{k}'] = dict(card_mean=float(a.mean()),
+                                          cpu_mean=float(c.mean()),
+                                          max_abs_diff=err, ok=good)
+            metrics_ok = metrics_ok and good
+    rec = dict(
+        model='SwinIR x8 pixelshuffledirect C=180 6x6 heads 6 ws 8, '
+        'unfused blocks, use_pallas_attn (K6), bf16 compute over f32 '
+        'params, random weights (seed 0), make_eval_forward',
+        batch=BATCH, lr_hw=[LR, LR], iters=iters, warmup_s=warm_s,
+        ms_per_batch=1e3 * dt / iters, images_per_s=BATCH * iters / dt,
+        max_memory_allocated=peak, attention_layers=n_attn,
+        launches=launches,
+        launches_per_forward={k: v / iters for k, v in launches.items()},
+        pred_shape=list(pred.shape),
+        pred_is_uint8_valued=bool((pred == pred.round()).all()
+                                  and pred.min() >= 0 and pred.max() <= 255),
+        finite=finite,
+        out_kernel_vs_plain_max_abs=float((y_k - y_p).abs().max()),
+        out_kernel_vs_f32_mean_abs=float(err_k.mean()),
+        out_kernel_vs_f32_max_abs=float(err_k.max()),
+        out_plain_vs_f32_mean_abs=float(err_p.mean()),
+        out_plain_vs_f32_max_abs=float(err_p.max()),
+        kernel_as_close_as_plain=close, metrics=metrics,
+        metrics_card_vs_cpu_ok=metrics_ok, nvidia_smi=smi)
+    ok = (n_attn == 36 and launches['wmsa'] == n_attn * iters
+          and all(v == 0 for k, v in launches.items() if k != 'wmsa')
+          and rec['pred_shape'] == [BATCH, 1, LR * SCALE, LR * SCALE]
+          and rec['pred_is_uint8_valued'] and finite and close
+          and metrics_ok)
+    return rec, ok, (fwd, batch)
 
 
 def flagship_args():
@@ -788,6 +1045,13 @@ def main() -> int:
         return 1
     pair_times = emit('kernel_time_pair', **kernel_time_pair(dev, gen),
                       library_ms=None, nvidia_smi=smi)
+    wmsa_checks, ok = kernel_check_wmsa(dev, gen)
+    emit('kernel_check_wmsa', checks=wmsa_checks, nvidia_smi=smi)
+    if not ok:
+        print('chip_smoke: kernel_check_wmsa failed', file=sys.stderr)
+        return 1
+    wmsa_times = emit('kernel_time_wmsa', **kernel_time_wmsa(dev, gen),
+                      nvidia_smi=smi)
 
     args = flagship_args()
     state = define_g(args, dev, seed=0).state_dict()
@@ -798,14 +1062,15 @@ def main() -> int:
     req_b = rng.integers(0, 256, (BATCH, 1, LR, LR), dtype=np.uint8)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    sb.fused_swin_block_grouped.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     out_a = srv(req_a)          # 2 forwards: 8, then 3 padded to 8
     out_b = srv(req_b)
     out_c = srv(req_b)
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
-    launches = sb.fused_swin_block_grouped.launches
+    serve_launches = read_launches()
+    launches = serve_launches['grouped']
     forwards = 4
     n_blocks = sum(m.depth for m in srv.model.modules()
                    if isinstance(m, FusedBlockStack))
@@ -855,6 +1120,7 @@ def main() -> int:
         'ws 8, bf16 compute, random weights (seed 0)',
         batch=BATCH, lr_hw=[LR, LR], requests=[11, BATCH, BATCH],
         forwards=forwards, blocks_per_forward=n_blocks, launches=launches,
+        launches_all=serve_launches,
         setup_seconds=srv.setup_seconds, serve_seconds=serve_s,
         images_per_s=ips, ms_per_batch=1e3 * BATCH / ips,
         max_memory_allocated=peak_mem, shapes_ok=ok_shapes,
@@ -872,13 +1138,23 @@ def main() -> int:
         u8_share_255=float((out_b == 255).mean()), nvidia_smi=smi)
     if not (ok_shapes and deterministic and finite
             and launches == n_blocks * forwards and n_blocks == 36
-            and close):
+            and serve_launches['wmsa'] == 0 and close):
         print('chip_smoke: serve failed', file=sys.stderr)
         return 1
     x_b = torch.from_numpy(req_b).to(dev)
     prof = emit('serve_profile', **profile_device(
         lambda: srv._serve(x_b), serve['ms_per_batch']), nvidia_smi=smi)
     del srv, x_b
+
+    ev, ok, (eval_fwd, eval_batch) = eval_unfused(dev, smi)
+    ev = emit('eval_unfused', **ev)
+    if not ok:
+        print('chip_smoke: eval_unfused failed', file=sys.stderr)
+        return 1
+    ev_prof = emit('eval_unfused_profile', **profile_device(
+        lambda: eval_fwd(None, eval_batch), ev['ms_per_batch']),
+        nvidia_smi=smi)
+    del eval_fwd, eval_batch
 
     # the paths are compared from the seeded initial weights, then the
     # same state trains
@@ -956,6 +1232,18 @@ def main() -> int:
             'bound_ms': t['bound_ms'], 'bound_by': t['bound_by'],
             # no single PyTorch call computes a block pair or its backward
             'library_ms': None})
+    bf16_wmsa = [c for c in wmsa_checks if c.get('dtype') == 'bf16'
+                 and c['case'].startswith('eval')]
+    kernels.append({
+        'name': 'window_attention', 'route': 'cuda',
+        'source': f'{src}/window_attention.cu',
+        'replaces': 'srcaco2_tpu/ops/pallas/window_attention.py:21',
+        'launches': ev['launches']['wmsa'],
+        'max_abs_err': max(c['max_abs_err'] for c in bf16_wmsa),
+        'ms': wmsa_times['ms'], 'plain_ms': wmsa_times['plain_ms'],
+        'bound_ms': wmsa_times['bound_ms'],
+        'bound_by': wmsa_times['bound_by'],
+        'library_ms': wmsa_times['library_ms']})
     emit('kernels', kernels=[
         {'name': 'swin_block_grouped', 'tpu': f'{tpu}:_fwd_kernel_grouped',
          'check_passed': True},
@@ -966,6 +1254,9 @@ def main() -> int:
         {'name': 'swin_block_pair_fwd', 'tpu': f'{tpu}:_fwd_kernel_pair',
          'check_passed': True},
         {'name': 'swin_block_pair_bwd', 'tpu': f'{tpu}:_bwd_kernel_pair',
+         'check_passed': True},
+        {'name': 'window_attention',
+         'tpu': 'srcaco2_tpu/ops/pallas/window_attention.py:_wmsa_kernel',
          'check_passed': True}])
     if out_dir:
         with open(os.path.join(out_dir, 'chip_smoke.json'), 'w') as f:
@@ -979,6 +1270,9 @@ def main() -> int:
                        'train_compare_pair': compare_pair,
                        'train_pair': train_pair,
                        'train_pair_profile': pair_prof,
+                       'kernel_check_wmsa': wmsa_checks,
+                       'kernel_time_wmsa': wmsa_times,
+                       'eval_unfused': ev, 'eval_unfused_profile': ev_prof,
                        'kernels': kernels}, f, indent=1)
     print(json.dumps({'kernels': kernels}))
     print(smi)

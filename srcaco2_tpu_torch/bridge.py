@@ -5,12 +5,18 @@ Leaves are matched by name, never by order:
   * conv kernels (kh, kw, I, O) become (O, I, kh, kw);
   * LayerNorm `scale` becomes `weight` (patch_norm, the final norm and
     the stacked block LNs ln1/ln2);
-  * dense kernels keep the flax (in, out) layout: the port's
-    FusedBlockStack computes `x @ kernel`, so nothing is transposed;
-  * stacked block leaves come either under stages/RSTB_0/blocks/<leaf>
-    stacked (S, d, ...) (uniform stages, scanned) or under
-    rstb{i}/blocks/<leaf> stacked (d, ...); both land on
-    stages.{s}.blocks.<leaf>.
+  * dense kernels keep the flax (in, out) layout: the port computes
+    `x @ kernel`, so nothing is transposed;
+  * a stage's leaves come under stages/RSTB_0/... with a leading stage
+    axis (uniform stages, scanned) or under rstb{s}/...; both land on
+    stages.{s}....;
+  * fused blocks (swinir_use_fused_blocks): blocks/<leaf> stacked
+    (d, ...) lands on stages.{s}.blocks.<leaf>;
+  * unfused blocks: blocks/SwinBlock_{m}/<path> stacked (d/2, ...) (even
+    depth: scanned pairs, member m of pair p is block 2p + m) or
+    SwinBlock_{i}/<path> (odd depth, unrolled) land on
+    stages.{s}.blocks.{i}.{norm1, attn.qkv, attn.proj,
+    attn.rel_pos_bias, norm2, fc1, fc2}.
 Any flax leaf that maps to no port parameter, any port parameter left
 unfilled, and any shape mismatch raise.
 
@@ -43,51 +49,82 @@ _TOP = {'conv_first': 'conv_first', 'conv_after_body': 'conv_after_body',
         'patch_norm': 'patch_norm', 'LayerNorm_0': 'norm'}
 
 
+# leaves of one unfused SwinBlock: flax path -> port name
+_BLOCK = {'LayerNorm_0': 'norm1', 'LayerNorm_1': 'norm2',
+          'WindowAttention_0/qkv': 'attn.qkv',
+          'WindowAttention_0/proj': 'attn.proj',
+          'Dense_0': 'fc1', 'Dense_1': 'fc2'}
+
+
+def _block_leaf(rest: str):
+    """Port leaf name (under blocks.{i}.) of a path inside one SwinBlock,
+    or None."""
+    if rest == 'WindowAttention_0/rel_pos_bias':
+        return 'attn.rel_pos_bias'
+    mod, _, leaf = rest.rpartition('/')
+    if mod in _BLOCK and leaf in ('kernel', 'scale', 'bias'):
+        return f'{_BLOCK[mod]}.{_leaf_name(leaf)}'
+    return None
+
+
+def _conv(a: np.ndarray) -> np.ndarray:
+    return a.transpose(3, 2, 0, 1) if a.ndim == 4 else a
+
+
+def _stage_targets(s: int, rest: str, value: np.ndarray):
+    """[(port name, array)] of one stage's leaf (its stage axis already
+    taken off), or None if unmapped."""
+    m = re.fullmatch(r'Conv_(\d+)/Conv_0/(kernel|bias)', rest)
+    if m:
+        return [(f'stages.{s}.convs.{m.group(1)}.{_leaf_name(m.group(2))}',
+                 _conv(value))]
+    m = re.fullmatch(r'blocks/(\w+)', rest)
+    if m:       # fused: one stacked (d, ...) leaf
+        return [(f'stages.{s}.blocks.'
+                 + m.group(1).replace('_scale', '_weight'), value)]
+    m = re.fullmatch(r'blocks/SwinBlock_([01])/(.+)', rest)
+    if m and _block_leaf(m.group(2)):
+        # unfused, even depth: scanned (no-shift, shift) pairs stacked
+        # (d/2, ...); member m of pair p is block 2p + m
+        name = _block_leaf(m.group(2))
+        return [(f'stages.{s}.blocks.{2 * p + int(m.group(1))}.{name}',
+                 value[p]) for p in range(value.shape[0])]
+    m = re.fullmatch(r'SwinBlock_(\d+)/(.+)', rest)
+    if m and _block_leaf(m.group(2)):   # unfused, odd depth: unrolled
+        return [(f'stages.{s}.blocks.{m.group(1)}.{_block_leaf(m.group(2))}',
+                 value)]
+    return None
+
+
 def _targets(path: Tuple[str, ...], value: np.ndarray):
     """[(port name, array)] for one flax leaf, or None if unmapped."""
     ks = '/'.join(path)
     leaf = path[-1]
-    conv = leaf == 'kernel' and value.ndim >= 4
-
-    def arr(a):
-        return a.transpose(3, 2, 0, 1) if conv else a
-
     if path[0] in _TOP and len(path) <= 3:
-        return [(f'{_TOP[path[0]]}.{_leaf_name(leaf)}', arr(value))]
+        return [(f'{_TOP[path[0]]}.{_leaf_name(leaf)}', _conv(value))]
     m = re.fullmatch(r'Upsampler_0/Conv_(\d+)/Conv_0/(kernel|bias)', ks)
     if m:
         return [(f'upsample.convs.{m.group(1)}.{_leaf_name(leaf)}',
-                 arr(value))]
+                 _conv(value))]
     if re.fullmatch(r'UpsamplerDirect_0/Conv_0/Conv_0/(kernel|bias)', ks):
-        return [(f'upsample.conv.{_leaf_name(leaf)}', arr(value))]
+        return [(f'upsample.conv.{_leaf_name(leaf)}', _conv(value))]
     m = re.fullmatch(r'Conv_(\d+)/Conv_0/(kernel|bias)', ks)
     if m:
-        return [(f'nearest.{m.group(1)}.{_leaf_name(leaf)}', arr(value))]
-
-    def stage_leaf(rest: str):
-        m = re.fullmatch(r'blocks/(\w+)', rest)
-        if m:
-            return 'blocks.' + m.group(1).replace('_scale', '_weight')
-        m = re.fullmatch(r'Conv_(\d+)/Conv_0/(kernel|bias)', rest)
-        if m:
-            return f'convs.{m.group(1)}.{_leaf_name(m.group(2))}'
-        return None
-
+        return [(f'nearest.{m.group(1)}.{_leaf_name(leaf)}', _conv(value))]
     m = re.fullmatch(r'stages/RSTB_0/(.+)', ks)
-    if m and stage_leaf(m.group(1)):
-        name = stage_leaf(m.group(1))
-        return [(f'stages.{s}.{name}', arr(value[s]))
+    if m:       # uniform stages, scanned: a leading stage axis
+        outs = [_stage_targets(s, m.group(1), value[s])
                 for s in range(value.shape[0])]
+        return None if None in outs else [t for o in outs for t in o]
     m = re.fullmatch(r'rstb(\d+)/(.+)', ks)
-    if m and stage_leaf(m.group(2)):
-        return [(f'stages.{m.group(1)}.{stage_leaf(m.group(2))}',
-                 arr(value))]
+    if m:
+        return _stage_targets(int(m.group(1)), m.group(2), value)
     return None
 
 
 def flax_to_torch(params_np: Dict, model: nn.Module
                   ) -> Dict[str, torch.Tensor]:
-    """Nested dict of numpy arrays (flax SwinIR, fused_blocks=True) ->
+    """Nested dict of numpy arrays (flax SwinIR, either block layout) ->
     state_dict for `model` (f32 CPU tensors; load_state_dict moves them
     to the model's device)."""
     want = model.state_dict()

@@ -30,3 +30,12 @@ SGD = 'sgd'
 ADAM = 'adam'
 MULTISTEPLR = 'MultiStepLR'
 MYSTEPLR = 'MyStepLR'
+
+# evaluation metrics (ops/metrics.py, train/evaluator.py)
+PSNR_MTR = 'psnr'
+SSIM_MTR = 'ssim'
+MSE_MTR = 'mse'
+NRMSE_MTR = 'nrmse'
+PSNR_Y_MTR = 'psnr_y'
+# ROI thresholds the ROI metrics are marginalized over
+ROI_THRESH = [4, 5, 6, 7, 8, 9, 10]

@@ -14,17 +14,16 @@ def _p(netG: dict, nt: str, key: str):
 def define_g(args: dict, device=None, seed: int = 0) -> nn.Module:
     """Build the generator from the resolved config on `device` (default
     cuda), with f32 parameters drawn from a torch.Generator seeded with
-    `seed`; compute in bf16 when args['amp'] is set."""
+    `seed`; compute in bf16 when args['amp'] is set. SwinIR's block
+    layout follows `swinir_use_fused_blocks` (default False, as in JAX);
+    the unfused layout gets the plain attention core
+    (use_pallas_attn=False), as JAX's define_g builds it."""
     netG = args['netG']
     nt = netG['net_type']
     dtype = torch.bfloat16 if args.get('amp', False) else torch.float32
     if nt != constants.SWINIR:
         raise NotImplementedError(
             f'{nt}: only SwinIR is ported so far (see ROADMAP.md)')
-    if not netG.get(f'{safe_str_var(nt)}_use_fused_blocks', False):
-        raise NotImplementedError(
-            'SwinIR with use_fused_blocks=False has another parameter '
-            'tree; only the fused layout is ported (see ROADMAP.md)')
     from srcaco2_tpu_torch.models.swinir import SwinIR
     model = SwinIR(in_chans=_p(netG, nt, 'in_chans'),
                    upscale=_p(netG, nt, 'upscale'),
@@ -36,6 +35,8 @@ def define_g(args: dict, device=None, seed: int = 0) -> nn.Module:
                    mlp_ratio=float(_p(netG, nt, 'mlp_ratio')),
                    upsampler=_p(netG, nt, 'upsampler'),
                    resi_connection=_p(netG, nt, 'resi_connection'),
+                   fused_blocks=bool(netG.get(
+                       f'{safe_str_var(nt)}_use_fused_blocks', False)),
                    dtype=dtype, device=resolve_device(device))
     model.reset_parameters(torch.Generator().manual_seed(seed))
     return model.eval()

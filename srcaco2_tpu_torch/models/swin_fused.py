@@ -39,7 +39,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from srcaco2_tpu_torch.models.swinir import (relative_position_index,
+from srcaco2_tpu_torch.models.swinir import (_trunc_normal_,
+                                             relative_position_index,
                                              shift_attn_mask,
                                              window_partition,
                                              window_reverse)
@@ -165,12 +166,8 @@ class FusedBlockStack(nn.Module):
                 if name.startswith('ln') and name.endswith('weight'):
                     p.fill_(1.0)
                 elif name.endswith('kernel') or name == 'rel_pos_table':
-                    std = (0.02 if name == 'rel_pos_table'
-                           else 1.0 / math.sqrt(p.shape[-2]))
-                    t = torch.empty(p.shape)
-                    nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std,
-                                          generator=gen)
-                    p.copy_(t)
+                    _trunc_normal_(p, 0.02 if name == 'rel_pos_table'
+                                   else 1.0 / math.sqrt(p.shape[-2]), gen)
                 else:
                     p.zero_()
 

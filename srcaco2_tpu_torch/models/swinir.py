@@ -1,21 +1,35 @@
 """SwinIR for super-resolution (port of srcaco2_tpu/models/swinir.py).
 
-Same network as the JAX module with `fused_blocks=True`: mean /
-img_range, reflect pad to the window size, conv_first, patch-norm LN,
-residual Swin stages (RSTB: a FusedBlockStack + 1conv or 3conv
-residual), final LN, conv_after_body and the three upsamplers. Swin
-blocks work in NHWC, convolutions in NCHW. Parameters are f32; `dtype`
-is the compute dtype (bf16 under amp). The module's training flag
-(`model.train()` / `model.eval()`) is the JAX module's `train`
-argument: it keeps the forward-only tiled path of the Swin stages
-(`fused_tiled=not train`) out of training.
+The network of the JAX module: mean / img_range, reflect pad to the
+window size, conv_first, patch-norm LN, residual Swin stages (RSTB: the
+Swin blocks + 1conv or 3conv residual), final LN, conv_after_body and
+the three upsamplers. Swin blocks work in NHWC, convolutions in NCHW.
+Parameters are f32; `dtype` is the compute dtype (bf16 under amp). The
+module's training flag (`model.train()` / `model.eval()`) is the JAX
+module's `train` argument: it keeps the forward-only tiled path of the
+fused stages (`fused_tiled=not train`) out of training.
+
+Two block layouts, as in JAX:
+  * `fused_blocks=True` (the port's default, what define_g builds for
+    `swinir_use_fused_blocks`): each stage is a FusedBlockStack over
+    stacked parameters (models/swin_fused.py);
+  * `fused_blocks=False` (JAX's default): each stage is a list of
+    SwinBlocks (LN, roll, window partition, WindowAttention, reverse,
+    roll back, residual, LN, tanh-GELU MLP, residual), shifts 0 and
+    ws/2 alternating. `use_pallas_attn` selects the attention core of
+    WindowAttention: ops/window_attention.window_attention (K6 on the
+    card, forward-only: the eval path) or the plain formulation of
+    JAX's XLA branch, a different function in bf16.
 
 State-dict names (the bridge maps the flax tree onto them):
-conv_first, patch_norm, stages.{s}.blocks.<leaf>, stages.{s}.convs.{i},
-norm, conv_after_body, and conv_before_up / upsample.convs.{i} /
-conv_last (pixelshuffle), upsample.conv (pixelshuffledirect) or
-nearest.{i} (nearest_conv).
+conv_first, patch_norm, stages.{s}.blocks.<leaf> (fused) or
+stages.{s}.blocks.{i}.{norm1, attn.qkv, attn.proj, attn.rel_pos_bias,
+norm2, fc1, fc2} (unfused; dense weights in the flax (in, out) layout),
+stages.{s}.convs.{i}, norm, conv_after_body, and conv_before_up /
+upsample.convs.{i} / conv_last (pixelshuffle), upsample.conv
+(pixelshuffledirect) or nearest.{i} (nearest_conv).
 """
+import functools
 import math
 
 import numpy as np
@@ -25,7 +39,8 @@ import torch.nn.functional as F
 
 from srcaco2_tpu_torch import constants
 from srcaco2_tpu_torch.models.blocks import Conv, Upsampler, UpsamplerDirect
-from srcaco2_tpu_torch.ops.swin_block import LN_EPS
+from srcaco2_tpu_torch.ops.swin_block import LN_EPS, _const
+from srcaco2_tpu_torch.ops.window_attention import window_attention
 
 
 def window_partition(x: torch.Tensor, ws: int) -> torch.Tensor:
@@ -87,18 +102,183 @@ class LayerNorm(nn.Module):
                             self.bias, LN_EPS).to(self.dtype)
 
 
+def _trunc_normal_(p: torch.Tensor, std: float, gen: torch.Generator):
+    """Truncated normal in [-2 std, 2 std], drawn on the CPU from gen."""
+    with torch.no_grad():
+        t = torch.empty(p.shape)
+        nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std, generator=gen)
+        p.copy_(t)
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Product of two operands in their (compute) dtype with f32
+    accumulation and one rounding, as a dot_general in that dtype."""
+    return torch.matmul(a, b)
+
+
+class Dense(nn.Module):
+    """flax nn.Dense(dtype=dtype): input and weight cast to the compute
+    dtype, the product in it, then the bias added in it. The weight keeps
+    the flax (in, out) layout: y = x @ weight + bias."""
+
+    def __init__(self, in_features: int, out_features: int, *,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.zeros(in_features, out_features,
+                                               device=device))
+        self.bias = nn.Parameter(torch.zeros(out_features, device=device))
+
+    def reset_parameters(self, gen: torch.Generator):
+        """Truncated-normal weight (std 1/sqrt(fan_in), as FusedBlockStack
+        draws its dense kernels), zero bias."""
+        _trunc_normal_(self.weight, 1.0 / math.sqrt(self.weight.shape[0]),
+                       gen)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x):
+        return (_mm(x.to(self.dtype), self.weight.to(self.dtype))
+                + self.bias.to(self.dtype))
+
+
+def _flax_gelu(u: torch.Tensor) -> torch.Tensor:
+    """jax.nn.gelu(approximate=True) (flax nn.gelu) in u's dtype, one
+    rounding per op: x * (0.5 * (1 + tanh(c * (x + 0.044715 * x^3)))),
+    with x^3 = x * (x * x) as lax.integer_pow expands it and the
+    constants rounded to u's dtype."""
+    c = _const(math.sqrt(2 / math.pi), u.dtype)
+    cube = u * (u * u)
+    inner = u + _const(0.044715, u.dtype) * cube
+    return u * (0.5 * (1.0 + torch.tanh(c * inner)))
+
+
+def _softmax(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.softmax over the last axis in x's dtype: exp(x - max)
+    rounded to the dtype, its sum in f32 (jnp.sum upcasts) rounded to the
+    dtype, then the division."""
+    e = torch.exp(x - x.amax(-1, keepdim=True))
+    return e / e.float().sum(-1, keepdim=True).to(x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _rel_index_on(ws: int, device: str) -> torch.Tensor:
+    return torch.as_tensor(relative_position_index(ws).reshape(-1),
+                           dtype=torch.long).to(device)
+
+
+@functools.lru_cache(maxsize=64)
+def _shift_mask_on(h: int, w: int, ws: int, shift: int,
+                   device: str) -> torch.Tensor:
+    """shift_attn_mask as an f32 tensor on `device`, copied there once."""
+    return torch.as_tensor(shift_attn_mask(h, w, ws, shift)).to(device)
+
+
+class WindowAttention(nn.Module):
+    """W-MSA with a learned relative position bias over (B*nW, N, C)
+    windows (JAX WindowAttention). `use_pallas` routes the core through
+    ops/window_attention.window_attention, the function of the TPU kernel:
+    the f32 bias table rounded to the compute dtype, then everything in
+    f32 with one rounding of the output. Otherwise the core is JAX's XLA
+    branch, every op in the compute dtype."""
+
+    def __init__(self, dim: int, window_size: int, num_heads: int, *,
+                 dtype=torch.float32, use_pallas: bool = False,
+                 device=None):
+        super().__init__()
+        self.window_size, self.num_heads = window_size, num_heads
+        self.dtype, self.use_pallas = dtype, use_pallas
+        self.rel_pos_bias = nn.Parameter(torch.zeros(
+            (2 * window_size - 1) ** 2, num_heads, device=device))
+        self.qkv = Dense(dim, 3 * dim, dtype=dtype, device=device)
+        self.proj = Dense(dim, dim, dtype=dtype, device=device)
+        # the core of the use_pallas branch; a measurement can swap in
+        # ops/window_attention.window_attention_ref to compare paths
+        self.attn_op = window_attention
+
+    def reset_parameters(self, gen: torch.Generator):
+        _trunc_normal_(self.rel_pos_bias, 0.02, gen)
+
+    def forward(self, x: torch.Tensor, mask=None) -> torch.Tensor:
+        """x: (B*nW, N, C); mask: (nW, N, N) f32 additive or None."""
+        bnw, n, c = x.shape
+        nh = self.num_heads
+        hd = c // nh
+        idx = _rel_index_on(self.window_size, str(x.device))
+        bias = self.rel_pos_bias[idx].reshape(n, n, nh).permute(2, 0, 1)
+        qkv = self.qkv(x)
+        if self.use_pallas:
+            out = self.attn_op(qkv, bias.to(qkv.dtype), mask, heads=nh)
+            return self.proj(out)
+        q, k, v = qkv.reshape(bnw, n, 3, nh, hd).permute(2, 0, 3, 1, 4)
+        attn = _mm(q * _const(hd ** -0.5, q.dtype), k.transpose(-1, -2))
+        attn = attn + bias.to(attn.dtype)[None]
+        if mask is not None:
+            nw = mask.shape[0]
+            attn = (attn.reshape(bnw // nw, nw, nh, n, n)
+                    + mask.to(attn.dtype)[None, :, None]
+                    ).reshape(bnw, nh, n, n)
+        out = _mm(_softmax(attn), v)
+        return self.proj(out.permute(0, 2, 1, 3).reshape(bnw, n, c))
+
+
+class SwinBlock(nn.Module):
+    """One Swin block over (B, H, W, C), H and W multiples of the window
+    (JAX SwinBlock): LN, roll by -shift, window attention (with the -100
+    shift mask when shifted), roll back, residual; LN, fc1, tanh-GELU,
+    fc2, residual. Every op in the compute dtype."""
+
+    def __init__(self, dim: int, num_heads: int, window_size: int,
+                 shift: int, mlp_ratio: float, *, dtype=torch.float32,
+                 use_pallas: bool = False, device=None):
+        super().__init__()
+        self.window_size, self.shift = window_size, shift
+        kw = dict(dtype=dtype, device=device)
+        self.norm1 = LayerNorm(dim, **kw)
+        self.attn = WindowAttention(dim, window_size, num_heads,
+                                    use_pallas=use_pallas, **kw)
+        self.norm2 = LayerNorm(dim, **kw)
+        hidden = int(dim * mlp_ratio)
+        self.fc1 = Dense(dim, hidden, **kw)
+        self.fc2 = Dense(hidden, dim, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        _, h, w, _ = x.shape
+        ws, shift = self.window_size, self.shift
+        y = self.norm1(x)
+        mask = None
+        if shift:
+            y = torch.roll(y, (-shift, -shift), dims=(1, 2))
+            mask = _shift_mask_on(h, w, ws, shift, str(x.device))
+        y = window_reverse(self.attn(window_partition(y, ws), mask), ws, h, w)
+        if shift:
+            y = torch.roll(y, (shift, shift), dims=(1, 2))
+        x = x + y
+        return x + self.fc2(_flax_gelu(self.fc1(self.norm2(x))))
+
+
 class RSTB(nn.Module):
-    """Residual Swin Transformer Block over NHWC: depth blocks, then a
-    1conv or 3conv (bottleneck) convolution, plus the residual."""
+    """Residual Swin Transformer Block over NHWC: depth blocks (a
+    FusedBlockStack, or with fused=False a list of SwinBlocks with shifts
+    0 and ws/2 alternating), then a 1conv or 3conv (bottleneck)
+    convolution, plus the residual."""
 
     def __init__(self, dim: int, depth: int, num_heads: int,
                  window_size: int, mlp_ratio: float,
                  resi_connection: str = constants.R_CONNECTION_1CONV, *,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, fused: bool = True,
+                 use_pallas: bool = False, device=None):
         super().__init__()
-        from srcaco2_tpu_torch.models.swin_fused import FusedBlockStack
-        self.blocks = FusedBlockStack(dim, depth, num_heads, window_size,
-                                      mlp_ratio, dtype=dtype, device=device)
+        if fused:
+            from srcaco2_tpu_torch.models.swin_fused import FusedBlockStack
+            self.blocks = FusedBlockStack(dim, depth, num_heads,
+                                          window_size, mlp_ratio,
+                                          dtype=dtype, device=device)
+        else:
+            self.blocks = nn.Sequential(*(
+                SwinBlock(dim, num_heads, window_size,
+                          0 if i % 2 == 0 else window_size // 2, mlp_ratio,
+                          dtype=dtype, use_pallas=use_pallas, device=device)
+                for i in range(depth)))
         kw = dict(dtype=dtype, device=device)
         if resi_connection == constants.R_CONNECTION_1CONV:
             convs = [Conv(dim, dim, 3, **kw)]
@@ -126,7 +306,8 @@ class SwinIR(nn.Module):
                  num_heads=(6, 6, 6, 6, 6, 6), mlp_ratio: float = 2.0,
                  upsampler: str = constants.US_PIXEL_SHUFFLE,
                  resi_connection: str = constants.R_CONNECTION_1CONV, *,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, fused_blocks: bool = True,
+                 use_pallas_attn: bool = False, device=None):
         super().__init__()
         self.in_chans, self.upscale = in_chans, upscale
         self.img_range, self.window_size = img_range, window_size
@@ -141,7 +322,8 @@ class SwinIR(nn.Module):
         self.patch_norm = LayerNorm(embed_dim, **kw)
         self.stages = nn.ModuleList(
             RSTB(embed_dim, d, nh, window_size, mlp_ratio, resi_connection,
-                 **kw) for d, nh in zip(depths, num_heads))
+                 fused=fused_blocks, use_pallas=use_pallas_attn, **kw)
+            for d, nh in zip(depths, num_heads))
         self.norm = LayerNorm(embed_dim, **kw)
         self.conv_after_body = Conv(embed_dim, embed_dim, 3, **kw)
         if upsampler == constants.US_PIXEL_SHUFFLE:

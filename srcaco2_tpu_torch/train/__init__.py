@@ -1,2 +1,2 @@
-"""Training step, optimizer chain, schedules and state; inference-time
-test modes."""
+"""Training step, optimizer chain, schedules and state; the eval forward
+and its metric pass; inference-time test modes."""

@@ -1,4 +1,5 @@
-"""The train step (port of srcaco2_tpu/train/steps.py:make_train_step).
+"""The train step and the full-image eval forward (port of
+srcaco2_tpu/train/steps.py:make_train_step and make_eval_forward).
 
 One step: assemble the batch on the device from its draws, forward the
 model in training mode, the loss, the grads, the non-finite skip (a
@@ -101,3 +102,32 @@ def make_train_step(model, master: MasterLoss, tx, net_type: str,
         return state, holder, ok & ~corrupt
 
     return step_fn
+
+
+def make_eval_forward(model, net_type: str, scale: int, netG: dict = None,
+                      test_mode: int = 0) -> Callable:
+    """Full-image forward: (params, batch) -> the uint8-rounded
+    prediction in [0, 255] NCHW (f32), run in evaluation mode under
+    torch.inference_mode(). `params` is None for the model's own
+    parameters, or a {name: tensor} dict (the EMA weights, say) run
+    through the model by torch.func.functional_call. Window-padded
+    models pad inside their forward. test_mode != 0 wraps the forward in
+    the tiled / x8 inference modes (train/test_modes.py). JAX's unused
+    `use_ema` is left out: the caller picks the weights it passes."""
+    from srcaco2_tpu_torch.ops.metrics import uint8_round
+    from srcaco2_tpu_torch.train import test_modes as TM
+
+    @torch.inference_mode()
+    def fwd(params, batch):
+        model.eval()
+        x = net_input(net_type, batch, netG)
+
+        def raw(z):
+            if params is None:
+                return model(z)
+            return torch.func.functional_call(model, params, (z,))
+
+        return uint8_round(TM.test_mode(raw, x, mode=test_mode, sf=scale)
+                           if test_mode else raw(x))
+
+    return fwd

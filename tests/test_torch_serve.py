@@ -101,6 +101,15 @@ def test_port_names_nothing_of_jax_or_the_jax_package():
     assert not hits, hits
 
 
+def test_port_scan_covers_the_eval_modules():
+    scanned = {p.relative_to(ROOT).as_posix() for p in _port_sources()}
+    assert {'srcaco2_tpu_torch/ops/window_attention.py',
+            'srcaco2_tpu_torch/ops/metrics.py',
+            'srcaco2_tpu_torch/train/evaluator.py',
+            'srcaco2_tpu_torch/train/steps.py',
+            'chip_smoke.py'} <= scanned
+
+
 def test_port_imports_without_jax():
     """Every module of the port, and chip_smoke, imports with jax, flax,
     optax, orbax and srcaco2_tpu made unimportable."""
