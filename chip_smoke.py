@@ -18,14 +18,18 @@ non-zero:
                 time the card could take (bound)
   kernel_check_train  K1 (block forward) and K2 (block backward: dx, 12
                 weight grads, dbias) against their plain versions at
-                bench.py's training shapes, shifts 0 and 4, f32 and bf16
+                bench.py's training shapes, shifts 0 and 4, f32 and bf16;
+                two K2 calls on the same inputs must agree bit for bit
   kernel_time_train   median ms of K1 and K2 and of their plain versions
-                beside their bounds
+                beside their bounds; K2's window and reduction passes
+                apart (torch.profiler), and its reduction's four weight
+                products through torch.matmul (a yardstick)
   kernel_check_pair   K3 (pair forward) and K4 (pair backward: dx, 24
                 weight grads, both dbias) against their plain versions at
-                the same shapes (blocks with shifts 0 and 4), f32 and bf16
+                the same shapes (blocks with shifts 0 and 4), f32 and bf16;
+                two K4 calls must agree bit for bit
   kernel_time_pair    median ms of K3 and K4 and of their plain versions
-                beside their bounds
+                beside their bounds; K4's passes and yardstick as K2's
   kernel_check_wmsa   K6 (windowed attention forward) against its plain
                 version, f32 and bf16: the eval shape (512 windows of 64
                 tokens, C=180, 6 heads) with no mask and with the shift-4
@@ -252,6 +256,18 @@ def check_tensors(pairs, dtype, elementwise_out=False):
     return errs
 
 
+def bit_identical(first, second):
+    """Whether two calls' outputs (tensors, dicts of tensors, nested in
+    tuples) are equal bit for bit."""
+    import torch
+    if isinstance(first, dict):
+        return all(bit_identical(first[k], second[k]) for k in first)
+    if isinstance(first, (tuple, list)):
+        return all(bit_identical(a, b) for a, b in zip(first, second))
+    return bool(torch.equal(first.flatten().view(torch.uint8),
+                            second.flatten().view(torch.uint8)))
+
+
 def kernel_check_train(dev, gen):
     """K1 and K2 (dx, the 12 weight grads, dbias) against their plain
     versions at bench.py's shapes, shifts 0 and ws/2, f32 and bf16.
@@ -274,6 +290,11 @@ def kernel_check_train(dev, gen):
                 xd, dd, bias, idx, packed, packed_bwd, heads=HEADS,
                 compute_dtype=dt, ch=CH)
             g_k = sb.unpack_block_grads(gp, HEADS, C, CH)
+            again = sb.swin_block_bwd(
+                xd, dd, bias, idx, packed, packed_bwd, heads=HEADS,
+                compute_dtype=dt, ch=CH)
+            same = bit_identical((dx_k, gp, db_k), again)
+            del again
             torch.cuda.synchronize()
             out_r = sb.swin_block_ref(xd, params, bias, heads=HEADS,
                                       compute_dtype=dt)
@@ -285,8 +306,9 @@ def kernel_check_train(dev, gen):
             errs = check_tensors(pairs, name, elementwise_out=True)
             zero_off = bool((db_k[off_window] == 0).all())
             rec = dict(shift=shift, dtype=name, dbias_zero_off_window=zero_off,
-                       all_ok=all(e['ok'] for e in errs.values()) and zero_off,
-                       errs=errs, tol=TRAIN_TOL[name])
+                       bwd_bit_identical_twice=same,
+                       all_ok=all(e['ok'] for e in errs.values()) and zero_off
+                       and same, errs=errs, tol=TRAIN_TOL[name])
             recs.append(rec)
             ok = ok and rec['all_ok']
             del out_k, dx_k, gp, db_k, out_r, dx_r, g_r, db_r, pairs
@@ -312,9 +334,58 @@ def train_bounds(tokens, nbytes_fwd, nbytes_bwd):
                 bwd=bound(tokens * BWD_FLOPS_PER_TOKEN, nbytes_bwd))
 
 
+def pass_ms(fn, n=10):
+    """Device ms per call of the two passes of a backward kernel (its
+    window kernel and its reduction kernel), from torch.profiler over n
+    calls of fn after a warm-up."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = dict(window_pass_ms=0.0, reduce_pass_ms=0.0)
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        key = ('reduce_pass_ms' if 'reduce_kernel' in e.key else
+               'window_pass_ms' if 'window_kernel' in e.key else None)
+        if key:
+            out[key] += e.self_device_time_total / 1e3 / n
+    if not (out['window_pass_ms'] > 0 and out['reduce_pass_ms'] > 0):
+        raise RuntimeError(f'the profiler did not see both passes: {out}')
+    return out
+
+
+def reduce_library_ms(dev, gen, m=TRAIN_B * PATCH * PATCH):
+    """A yardstick for the backward's reduction pass, never on the main
+    path: its four weight products y^T dqkv, o^T dx2, y2^T du and hact^T
+    g as torch.matmul(A.T, B) on bf16 operands of the workspace's shapes
+    (m tokens, the kernels' padded widths), median ms of each and their
+    sum."""
+    import torch
+    from srcaco2_tpu_torch.ops import swin_block as sb
+    pd = sb._pads(C, HEADS, CH)
+    ca = HEADS * pd.hp
+    shapes = dict(dwqkv=(pd.ck, 3 * ca), dwproj=(ca, pd.ck),
+                  dw1=(pd.ck, pd.chp), dw2=(pd.chp, pd.ck))
+    out = {}
+    for name, (ka, nb) in shapes.items():
+        a = torch.randn((m, ka), generator=gen).to(dev, torch.bfloat16)
+        b = torch.randn((m, nb), generator=gen).to(dev, torch.bfloat16)
+        out[name] = cuda_ms(lambda: torch.matmul(a.T, b))
+    out['total'] = sum(out.values())
+    return out
+
+
 def kernel_time_train(dev, gen):
     """Median ms of K1 and K2 and of their plain versions (bf16, shift
-    ws/2, bench.py's shapes), beside their bounds."""
+    ws/2, bench.py's shapes), beside their bounds; K2's window and
+    reduction passes apart, and the reduction's weight products through
+    torch.matmul as a yardstick."""
     import torch
     from srcaco2_tpu_torch.ops import swin_block as sb
     shift, dt = WS // 2, torch.bfloat16
@@ -325,9 +396,14 @@ def kernel_time_train(dev, gen):
     packed_bwd = sb.pack_block_bwd_params(params, HEADS, dt)
     fwd_ms = cuda_ms(lambda: sb.swin_block_fwd(
         xd, bias, idx, packed, heads=HEADS, compute_dtype=dt))
-    bwd_ms = cuda_ms(lambda: sb.swin_block_bwd(
-        xd, dd, bias, idx, packed, packed_bwd, heads=HEADS,
-        compute_dtype=dt, ch=CH))
+
+    def run_bwd():
+        return sb.swin_block_bwd(xd, dd, bias, idx, packed, packed_bwd,
+                                 heads=HEADS, compute_dtype=dt, ch=CH)
+
+    bwd_ms = cuda_ms(run_bwd)
+    passes = pass_ms(run_bwd)
+    lib = reduce_library_ms(dev, gen, xd.shape[0] * xd.shape[1])
     fwd_plain = cuda_ms(lambda: sb.swin_block_ref(
         xd, params, bias, heads=HEADS, compute_dtype=dt), reps=3, per=3)
     bwd_plain = cuda_ms(lambda: sb.swin_block_bwd_ref(
@@ -347,7 +423,7 @@ def kernel_time_train(dev, gen):
                  / 1e9),
         bwd=dict(kernel='swin_block_bwd', ms=bwd_ms, plain_ms=bwd_plain,
                  **bounds['bwd'], tflops=bounds['bwd']['flops'] / bwd_ms
-                 / 1e9),
+                 / 1e9, **passes, reduce_matmul_ms=lib),
         shape=list(xd.shape), dtype='bf16', shift=shift)
 
 
@@ -393,6 +469,11 @@ def kernel_check_pair(dev, gen):
             heads=HEADS, compute_dtype=dt, ch=CH)
         ga_k = sb.unpack_block_grads(gpa, HEADS, C, CH)
         gb_k = sb.unpack_block_grads(gpb, HEADS, C, CH)
+        again = sb.swin_block_pair_bwd(
+            xd, dd, ba, idx[0], pk_a, pw_a, bb, idx[1], pk_b, pw_b,
+            heads=HEADS, compute_dtype=dt, ch=CH)
+        same = bit_identical((dx_k, gpa, dba_k, gpb, dbb_k), again)
+        del again
         torch.cuda.synchronize()
         out_r = sb.swin_block_pair_ref(xd, pa, ba, pb, bb, heads=HEADS,
                                        compute_dtype=dt)
@@ -406,7 +487,9 @@ def kernel_check_pair(dev, gen):
         zero_off = bool((dba_k[off[0]] == 0).all()
                         and (dbb_k[off[1]] == 0).all())
         rec = dict(dtype=name, dbias_zero_off_window=zero_off,
-                   all_ok=all(e['ok'] for e in errs.values()) and zero_off,
+                   bwd_bit_identical_twice=same,
+                   all_ok=all(e['ok'] for e in errs.values()) and zero_off
+                   and same,
                    worst_rel_l2=max(errs, key=lambda k: errs[k]['rel_l2']),
                    errs=errs, tol=TRAIN_TOL[name])
         if name == 'bf16':
@@ -465,9 +548,17 @@ def kernel_time_pair(dev, gen):
     fwd_ms = cuda_ms(lambda: sb.swin_block_pair_fwd(
         xd, ba, idx[0], pk_a, bb, idx[1], pk_b, heads=HEADS,
         compute_dtype=dt))
-    bwd_ms = cuda_ms(lambda: sb.swin_block_pair_bwd(
-        xd, dd, ba, idx[0], pk_a, pw_a, bb, idx[1], pk_b, pw_b, heads=HEADS,
-        compute_dtype=dt, ch=CH))
+
+    def run_bwd():
+        return sb.swin_block_pair_bwd(xd, dd, ba, idx[0], pk_a, pw_a, bb,
+                                      idx[1], pk_b, pw_b, heads=HEADS,
+                                      compute_dtype=dt, ch=CH)
+
+    bwd_ms = cuda_ms(run_bwd)
+    passes = pass_ms(run_bwd)
+    # the pair's reduction runs both blocks' products
+    lib = {k: 2 * v for k, v in reduce_library_ms(
+        dev, gen, xd.shape[0] * xd.shape[1]).items()}
     fwd_plain = cuda_ms(lambda: sb.swin_block_pair_ref(
         xd, pa, ba, pb, bb, heads=HEADS, compute_dtype=dt), reps=3, per=3)
     bwd_plain = cuda_ms(lambda: sb.swin_block_pair_bwd_ref(
@@ -487,7 +578,8 @@ def kernel_time_pair(dev, gen):
         fwd=dict(kernel='swin_block_pair_fwd', ms=fwd_ms, plain_ms=fwd_plain,
                  **fwd, tflops=fwd['flops'] / fwd_ms / 1e9),
         bwd=dict(kernel='swin_block_pair_bwd', ms=bwd_ms, plain_ms=bwd_plain,
-                 **bwd, tflops=bwd['flops'] / bwd_ms / 1e9),
+                 **bwd, tflops=bwd['flops'] / bwd_ms / 1e9, **passes,
+                 reduce_matmul_ms=lib),
         shape=list(xd.shape), dtype='bf16', shifts=[0, WS // 2])
 
 

@@ -27,20 +27,32 @@
 //     (f32) for the bias grad, and column-sum partials (per 16-row
 //     block) of the bias and LayerNorm grads. Shared memory holds the
 //     f32 residual rows, the LN / grad rows in T, the attention output
-//     or its grad, and one head's scratch; a window at C = 180 needs
-//     ~141 KB in bf16 and ~217 KB in f32, so intermediates that do not
+//     or its grad, and one head's scratch; intermediates that do not
 //     fit go through the workspace, which the next product reads back
-//     (L2-resident).
+//     (L2-resident). In bf16 a 72 KB ring streams every global operand
+//     (the weights, and the du and dq|dk|dv rows read back) in 64 x 64
+//     slices by cp.async, up to 7 slices ahead, and the products take
+//     ldmatrix fragments; x and g rows, each head's q, k, v and 64 x 64
+//     bias slice, the small weight vectors and gelu'(u) are staged in
+//     shared memory once. A window needs ~221 KB in bf16 and ~217 KB in
+//     f32: one CTA of 8 warps per SM, and the pass is bound by latency
+//     (a window takes ~630K SM cycles for ~66 MFLOP), not by bytes or
+//     operations.
 //  2. swin_block_bwd_reduce_kernel: the weight grads are sums over every
 //     token of every patch (512 windows at B = 128), written by hand
 //     as tiled A^T.B products over the workspace: dWqkv = y^T dqkv (plus
 //     a row of ones for dbqkv), dWproj = o^T dx2, dW1 = y2^T du, dW2 =
-//     hact^T dout. Each 64x64 output tile is split over token ranges;
-//     each split writes a partial, and the last split to finish (an
-//     atomic counter per tile) sums the partials in a fixed order. The
-//     same launch sums the column-sum partials and, per bias entry, the
-//     windows' ds over the patches; entries outside a window are exactly
-//     zero and are written as zeros.
+//     hact^T dout. Each 64x64 output tile is split over 2048-token
+//     ranges; each split writes a partial, and the last split to finish
+//     (an atomic counter per tile) sums the partials in a fixed order.
+//     In bf16 a split streams 64-token slices of A and B through a
+//     4-stage cp.async ring into mma.sync by ldmatrix.trans (both are
+//     token-major); jobs run split by split, so the CTAs in flight share
+//     one token range in L2. The same launch sums the column-sum
+//     partials (two fixed-order levels: chunks of 256 partial rows, then
+//     the chunks) and, per bias entry, the windows' ds over the patches;
+//     entries outside a window are exactly zero and are written as
+//     zeros.
 //
 // Rounding points follow _bwd_kernel's heads-batched branch
 // (swin_block.py:460-527) with the f32 softmax: du, dx2, dp and the
@@ -69,6 +81,8 @@ swin_block_bwd_window_kernel(const BwdParams p) {
 
 template <typename T>
 int launch(const BwdParams& p, cudaStream_t stream) {
+  if (std::is_same_v<T, bf16> && !ring_fits(p.d))
+    return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = make_bwd_layout<T, false>(p.d).total;
   cudaError_t err = allow_smem(swin_block_bwd_window_kernel<T>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -7,7 +7,10 @@
 //
 // The unit of work is one 64-token window per CTA (8 warps). Products
 // are warp-level mma.sync m16n8k16 (bf16 in, f32 accumulate) on
-// operands read straight from shared or global memory; the f32
+// operands read straight from shared or global memory, except in the
+// backward's bf16 window pass, whose global operands stream through a
+// cp.async ring (gemm64_staged) and whose fragments come through
+// ldmatrix; the f32
 // instantiation (the non-amp path and the checks) runs plain FMA loops
 // with the same fragment ownership. Awkward widths are zero-padded by
 // the wrappers' weight layouts (K = C -> multiple of 16, hd 30 -> 32,
@@ -27,6 +30,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace swin {
 
@@ -102,6 +107,96 @@ __device__ inline uint32_t ldpair(const bf16* p, int ld, int r, int k) {
     const uint32_t hi = __bfloat16_as_ushort(p[(k + 1) * ld + r]);
     return lo | (hi << 16);
   }
+}
+
+// Asynchronous 16-byte copy global -> shared (cp.async, L2 only); with
+// `valid` false the 16 bytes are zero-filled and nothing is read.
+__device__ inline void cp_async16(void* dst, const void* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+
+// Asynchronous 4-byte copy global -> shared (cp.async through L1).
+__device__ inline void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(s), "l"(src) : "memory");
+}
+
+__device__ inline void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's copy groups are in flight.
+template <int N> __device__ inline void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Four 8x8 b16 matrices from shared memory: lane l gives the address of
+// row l % 8 of matrix l / 8; r[i] is this lane's fragment of matrix i,
+// as stored or, with kTrans, transposed.
+template <bool kTrans>
+__device__ inline void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  if constexpr (kTrans)
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s));
+  else
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s));
+}
+
+__device__ inline void mma_bf16(float (&acc)[4], const uint32_t (&a)[4],
+                                uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(acc[0]), "+f"(acc[1]), "+f"(acc[2]), "+f"(acc[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The mma A fragment of rows r0..r0+15, columns k..k+15 of a bf16
+// operand in shared memory, row-major or (kT) stored transposed (element
+// (r, k) at A[k * ld + r]). Rows must start on 16 bytes.
+template <bool kT>
+__device__ inline void ldsm_a(uint32_t (&a)[4], const bf16* A, int ld,
+                              int r0, int k, int lane) {
+  const int q = lane >> 3, i = lane & 7;
+  if constexpr (!kT)
+    ldsm_x4<false>(a, A + (r0 + i + ((q & 1) << 3)) * ld + k +
+                          ((q >> 1) << 3));
+  else
+    ldsm_x4<true>(a, A + (k + i + ((q >> 1) << 3)) * ld + r0 +
+                         ((q & 1) << 3));
+}
+
+// The mma B fragments of the two n8 tiles n0..n0+15 at k..k+15 of Bt
+// ([N][K] row-major, or kT stored transposed): b[0], b[1] of the first
+// tile, b[2], b[3] of the second.
+template <bool kT>
+__device__ inline void ldsm_b(uint32_t (&b)[4], const bf16* Bt, int ld,
+                              int n0, int k, int lane) {
+  const int q = lane >> 3, i = lane & 7;
+  if constexpr (!kT)
+    ldsm_x4<false>(b, Bt + (n0 + i + ((q >> 1) << 3)) * ld + k +
+                          ((q & 1) << 3));
+  else
+    ldsm_x4<true>(b, Bt + (k + i + ((q & 1) << 3)) * ld + n0 +
+                         ((q >> 1) << 3));
+}
+
+// acc[j] += a . (tile j of b01 | b23) for the j < nvalid n8 tiles; b23
+// is loaded by the caller only when nvalid > 2.
+__device__ inline void mma_tiles(float (&acc)[NB][4], const uint32_t (&a)[4],
+                                 const uint32_t (&b01)[4],
+                                 const uint32_t (&b23)[4], int nvalid) {
+  mma_bf16(acc[0], a, b01[0], b01[1]);
+  if (nvalid > 1) mma_bf16(acc[1], a, b01[2], b01[3]);
+  if (nvalid > 2) mma_bf16(acc[2], a, b23[0], b23[1]);
+  if (nvalid > 3) mma_bf16(acc[3], a, b23[2], b23[3]);
 }
 
 template <bool kT>
@@ -181,6 +276,52 @@ __device__ inline float warp_max(float v) {
   return v;
 }
 
+// A warp's finished block of C (rows r0..r0+15, the j < nvalid n8
+// tiles from column n0), handed to epi(row, col, v0, v1) for each column
+// pair (col, col + 1).
+template <typename Epi>
+__device__ inline void epi_pairs(const float (&acc)[NB][4], int r0, int n0,
+                                 int nvalid, int lane, Epi& epi) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    if (j < nvalid) {
+      const int col = n0 + 8 * j + 2 * t;
+      epi(r0 + g, col, acc[j][0], acc[j][1]);
+      epi(r0 + g + 8, col, acc[j][2], acc[j][3]);
+    }
+  }
+}
+
+// The same, with an epilogue that returns a float2 (values at (row, col)
+// and (row, col + 1)) to be summed per column over the warp's 16 rows:
+// the sums land in cs[rb * ldcs + col] for row block rb = r0 / 16, in a
+// fixed order (deterministic).
+template <typename Epi>
+__device__ inline void epi_colsum(const float (&acc)[NB][4], int r0, int n0,
+                                  int nvalid, int lane, Epi& epi, float* cs,
+                                  int ldcs) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    if (j < nvalid) {
+      const int col = n0 + 8 * j + 2 * t;
+      const float2 lo = epi(r0 + g, col, acc[j][0], acc[j][1]);
+      const float2 hi = epi(r0 + g + 8, col, acc[j][2], acc[j][3]);
+      float s0 = lo.x + hi.x, s1 = lo.y + hi.y;
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) {
+        s0 += __shfl_xor_sync(0xffffffffu, s0, o);
+        s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+      }
+      if (g == 0) {
+        cs[(r0 / 16) * ldcs + col] = s0;
+        cs[(r0 / 16) * ldcs + col + 1] = s1;
+      }
+    }
+  }
+}
+
 // C[64][N] = A[64][K] . Bt[N][K]^T, handed to epi(row, col, v0, v1) for
 // the column pair (col, col + 1). N is a multiple of 8 and K of 16. Warp
 // w takes row block w % 4 and every other group of NB n8 tiles. kTA /
@@ -190,7 +331,6 @@ __device__ inline void gemm64(const T* A, int lda, const T* Bt, int ldb,
                               int K, int N, Epi epi) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int r0 = (warp & 3) * 16;
-  const int g = lane >> 2, t = lane & 3;
   for (int n0 = (warp >> 2) * 8 * NB; n0 < N; n0 += 2 * 8 * NB) {
     float acc[NB][4];
 #pragma unroll
@@ -199,28 +339,18 @@ __device__ inline void gemm64(const T* A, int lda, const T* Bt, int ldb,
     const int nvalid = min(NB, (N - n0) / 8);
     mma_rows<kTA, kTB>(acc, row_block<kTA>(A, lda, r0), lda,
                        row_block<kTB>(Bt, ldb, n0), ldb, K, nvalid, lane);
-#pragma unroll
-    for (int j = 0; j < NB; ++j) {
-      if (j < nvalid) {
-        const int col = n0 + 8 * j + 2 * t;
-        epi(r0 + g, col, acc[j][0], acc[j][1]);
-        epi(r0 + g + 8, col, acc[j][2], acc[j][3]);
-      }
-    }
+    epi_pairs(acc, r0, n0, nvalid, lane, epi);
   }
 }
 
-// gemm64 whose epilogue returns a float2 (values at (row, col) and
-// (row, col + 1)) to be summed per column over each warp's 16 rows: the
-// sums land in cs[rb * ldcs + col] for row block rb = row / 16, in a
-// fixed order (deterministic).
+// gemm64 whose epilogue returns a float2 summed per column over each
+// warp's 16 rows (see epi_colsum).
 template <typename T, typename Epi>
 __device__ inline void gemm64_colsum(const T* A, int lda, const T* Bt,
                                      int ldb, int K, int N, Epi epi,
                                      float* cs, int ldcs) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int r0 = (warp & 3) * 16;
-  const int g = lane >> 2, t = lane & 3;
   for (int n0 = (warp >> 2) * 8 * NB; n0 < N; n0 += 2 * 8 * NB) {
     float acc[NB][4];
 #pragma unroll
@@ -229,25 +359,149 @@ __device__ inline void gemm64_colsum(const T* A, int lda, const T* Bt,
     const int nvalid = min(NB, (N - n0) / 8);
     mma_rows<false, false>(acc, A + r0 * lda, lda, Bt + n0 * ldb, ldb, K,
                            nvalid, lane);
+    epi_colsum(acc, r0, n0, nvalid, lane, epi, cs, ldcs);
+  }
+}
+
+// gemm64 in bf16 with both operands in shared memory, fragments through
+// ldmatrix (kTA / kTB: stored transposed, through ldmatrix.trans). Same
+// warp ownership and k16 order as gemm64, so the same result bit for
+// bit. Rows start on 16 bytes; N is a multiple of 16.
+template <bool kTA, bool kTB, typename Epi>
+__device__ inline void gemm64_ldsm(const bf16* A, int lda, const bf16* Bt,
+                                   int ldb, int K, int N, Epi epi) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = (warp & 3) * 16;
+  for (int n0 = (warp >> 2) * 8 * NB; n0 < N; n0 += 2 * 8 * NB) {
+    float acc[NB][4];
 #pragma unroll
-    for (int j = 0; j < NB; ++j) {
-      if (j < nvalid) {
-        const int col = n0 + 8 * j + 2 * t;
-        const float2 lo = epi(r0 + g, col, acc[j][0], acc[j][1]);
-        const float2 hi = epi(r0 + g + 8, col, acc[j][2], acc[j][3]);
-        float s0 = lo.x + hi.x, s1 = lo.y + hi.y;
+    for (int j = 0; j < NB; ++j)
+      acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+    const int nvalid = min(NB, (N - n0) / 8);
+    for (int k = 0; k < K; k += 16) {
+      uint32_t a[4], b01[4], b23[4];
+      ldsm_a<kTA>(a, A, lda, r0, k, lane);
+      ldsm_b<kTB>(b01, Bt, ldb, n0, k, lane);
+      if (nvalid > 2) ldsm_b<kTB>(b23, Bt, ldb, n0 + 16, k, lane);
+      mma_tiles(acc, a, b01, b23, nvalid);
+    }
+    epi_pairs(acc, r0, n0, nvalid, lane, epi);
+  }
+}
+
+// The ring of gemm64_staged: RING_SLICES slices of 64 rows x 64 bf16
+// columns at a 144-byte row stride (ldmatrix rows on distinct banks).
+constexpr int LDR = 64 + 8;
+constexpr int RING_SLICES = 8;
+constexpr size_t RING_BYTES = RING_SLICES * 64 * LDR * sizeof(bf16);
+
+// A bf16 product C[64][N] = A[64][K] . Bt[N][K]^T whose Bt (and, with
+// kAG, A) lies in global memory: a weight, or workspace rows this CTA
+// wrote before a barrier. The global operands stream through `ring` in
+// slices of 64 rows of Bt (columns of C) by 64 of K, n-block after
+// n-block, copied by cp.async (16 bytes, zero-filled past N and K) up to
+// kStages - 1 stages ahead of the one that computes (8 stages of a Bt
+// slice, or 4 of a Bt and an A slice); fragments come out of shared
+// memory through ldmatrix. Each warp owns the block of C that gemm64
+// gives it and sums K in the same k16 order, so the result equals
+// gemm64's bit for bit. tile_epi(acc, r0, n0, nvalid) takes a warp's
+// finished block. A in shared memory (kAG false) has rows on 16 bytes;
+// lda, ldb and K are multiples of 8, global rows start on 16 bytes. The
+// call starts with a barrier (whatever the CTA read from the ring
+// before is done); the caller synchronises the CTA after it.
+template <bool kAG, typename TileEpi>
+__device__ inline void gemm64_staged(const bf16* A, int lda, const bf16* Bt,
+                                     int ldb, int K, int N, bf16* ring,
+                                     TileEpi tile_epi) {
+  constexpr int kSlices = kAG ? 2 : 1;
+  constexpr int kStages = RING_SLICES / kSlices;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = (warp & 3) * 16, nb = (warp >> 2) * 8 * NB;
+  const int nks = (K + 63) / 64, nst = nks * ((N + 63) / 64);
+  // with kAG, the CTA's own workspace stores before this call are seen
+  // by the copies' L2 reads
+  if constexpr (kAG) __threadfence();
+  __syncthreads();
+  auto fill = [&](int st) {
+    bf16* sb = ring + (st % kStages) * kSlices * 64 * LDR;
+    const int n0 = st / nks * 64, k0 = st % nks * 64;
 #pragma unroll
-        for (int o = 4; o < 32; o <<= 1) {
-          s0 += __shfl_xor_sync(0xffffffffu, s0, o);
-          s1 += __shfl_xor_sync(0xffffffffu, s1, o);
-        }
-        if (g == 0) {
-          cs[(warp & 3) * ldcs + col] = s0;
-          cs[(warp & 3) * ldcs + col + 1] = s1;
-        }
+    for (int i = 0; i < 2 * kSlices; ++i) {   // 512 chunks per slice
+      const int e = threadIdx.x + (i & 1) * THREADS;
+      const int row = e >> 3, col = (e & 7) * 8;
+      const bool ok_k = k0 + col < K;
+      if (i < 2) {
+        const bool ok = ok_k && n0 + row < N;
+        cp_async16(sb + row * LDR + col,
+                   Bt + (ok ? (n0 + row) * ldb + k0 + col : 0), ok);
+      } else {
+        cp_async16(sb + (64 + row) * LDR + col,
+                   A + (ok_k ? row * lda + k0 + col : 0), ok_k);
       }
     }
+  };
+  float acc[NB][4];
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < nst) fill(st);
+    cp_async_commit();
   }
+  for (int st = 0; st < nst; ++st) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();    // stage st landed; stage st - 1's slot is free
+    if (st + kStages - 1 < nst) fill(st + kStages - 1);
+    cp_async_commit();
+    const bf16* sb = ring + (st % kStages) * kSlices * 64 * LDR;
+    const int n0 = st / nks * 64, k0 = st % nks * 64;
+    const int nvalid = min(NB, (N - n0 - nb) / 8);
+    if (nvalid <= 0) continue;
+    const int kw = min(64, K - k0);
+    for (int kk = 0; kk < kw; kk += 16) {
+      uint32_t a[4], b01[4], b23[4];
+      if constexpr (kAG) ldsm_a<false>(a, sb + 64 * LDR, LDR, r0, kk, lane);
+      else ldsm_a<false>(a, A, lda, r0, k0 + kk, lane);
+      ldsm_b<false>(b01, sb, LDR, nb, kk, lane);
+      if (nvalid > 2) ldsm_b<false>(b23, sb, LDR, nb + 16, kk, lane);
+      mma_tiles(acc, a, b01, b23, nvalid);
+    }
+    if (k0 + 64 >= K) {
+      tile_epi(acc, r0, n0 + nb, nvalid);
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+        acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// gemm64 / gemm64_colsum through gemm64_staged.
+template <bool kAG, typename Epi>
+__device__ inline void gemm64_st(const bf16* A, int lda, const bf16* Bt,
+                                 int ldb, int K, int N, bf16* ring,
+                                 Epi epi) {
+  const int lane = threadIdx.x & 31;
+  gemm64_staged<kAG>(A, lda, Bt, ldb, K, N, ring,
+                     [&](const float (&acc)[NB][4], int r0, int n0,
+                         int nvalid) {
+                       epi_pairs(acc, r0, n0, nvalid, lane, epi);
+                     });
+}
+
+template <typename Epi>
+__device__ inline void gemm64_colsum_st(const bf16* A, int lda,
+                                        const bf16* Bt, int ldb, int K,
+                                        int N, bf16* ring, Epi epi,
+                                        float* cs, int ldcs) {
+  const int lane = threadIdx.x & 31;
+  gemm64_staged<false>(A, lda, Bt, ldb, K, N, ring,
+                       [&](const float (&acc)[NB][4], int r0, int n0,
+                           int nvalid) {
+                         epi_colsum(acc, r0, n0, nvalid, lane, epi, cs,
+                                    ldcs);
+                       });
 }
 
 // LayerNorm of the f32 rows of X into Y (T), zeroing the pad columns
@@ -292,15 +546,19 @@ template <typename T> __device__ inline float gelu_tanh(float u) {
   return rnd<T>(tanhf(z));
 }
 
-template <typename T> __device__ inline float gelu(float u) {
-  const float th = gelu_tanh<T>(u);
+// gelu(u) from its tanh term th = gelu_tanh<T>(u).
+template <typename T> __device__ inline float gelu_th(float u, float th) {
   return rnd<T>(rnd<T>(0.5f * u) * rnd<T>(1.f + th));
 }
 
-// d gelu / du in T, in the order of swin_block.py:_gelu_grad:
-// 0.5 (1 + th) + 0.5 u sech2 c (1 + 3a u u).
-template <typename T> __device__ inline float gelu_grad(float u) {
-  const float th = gelu_tanh<T>(u);
+template <typename T> __device__ inline float gelu(float u) {
+  return gelu_th<T>(u, gelu_tanh<T>(u));
+}
+
+// d gelu / du in T from th = gelu_tanh<T>(u), in the order of
+// swin_block.py:_gelu_grad: 0.5 (1 + th) + 0.5 u sech2 c (1 + 3a u u).
+template <typename T> __device__ inline float gelu_grad_th(float u,
+                                                           float th) {
   const float gc = rnd<T>(GELU_C), ga3 = rnd<T>(GELU_A3);
   const float sech2 = rnd<T>(1.f - rnd<T>(th * th));
   const float t1 = rnd<T>(0.5f * rnd<T>(1.f + th));
@@ -312,6 +570,10 @@ template <typename T> __device__ inline float gelu_grad(float u) {
   w = rnd<T>(1.f + w);
   t2 = rnd<T>(t2 * w);
   return rnd<T>(t1 + t2);
+}
+
+template <typename T> __device__ inline float gelu_grad(float u) {
+  return gelu_grad_th<T>(u, gelu_tanh<T>(u));
 }
 
 // Block weights in the forward kernels' layout (ops/swin_block.py:
@@ -429,7 +691,46 @@ struct Spill {
   T* u;      // [M][chp]   fc1 output
   T* hact;   // [M][chp]   GELU(u)
   float* mu1; float* rstd1; float* mu2; float* rstd2;   // smem [64] each
+  // bf16 only: gelu'(u) in T ([64][ldgg], shared memory, in place of u),
+  // the staged products' ring, and what stage_bias reads
+  T* gg;
+  int ldgg;
+  T* ring;
+  const float* bias;   // (heads, t, t)
+  const int* tok;      // smem [64]: the window's raster tokens
+  int t;
+  size_t row0;         // the patch's first raster row
 };
+
+// Copy the window's 64 rows of c elements of src (raster rows row0 +
+// tok[r]) to dst[r * c] in shared memory, 4 bytes per cp.async (rows
+// start on 4 bytes: c is even), as one commit group.
+template <typename E>
+__device__ inline void stage_rows(E* dst, const E* src, size_t row0,
+                                  const int* tok, int c) {
+  const int per = c * static_cast<int>(sizeof(E)) / 4;   // words per row
+  char* d = reinterpret_cast<char*>(dst);
+  for (int i = threadIdx.x; i < NW * per; i += THREADS) {
+    const int r = i / per, w = i % per;
+    cp_async4(d + (r * per + w) * 4,
+              reinterpret_cast<const char*>(src + (row0 + tok[r]) * c) +
+                  w * 4);
+  }
+  cp_async_commit();
+}
+
+// Copy head h's 64x64 slice of the (heads, t, t) bias, between the
+// window's tokens tok[r] and tok[c], to dst[r * ld + c] with cp.async
+// (one commit group): once per head instead of a gather per score.
+__device__ inline void stage_bias(const float* bias, const int* tok, int t,
+                                  int h, float* dst, int ld) {
+  const float* bh = bias + static_cast<size_t>(h) * t * t;
+  for (int i = threadIdx.x; i < NW * NW; i += THREADS) {
+    const int r = i >> 6, c = i & 63;
+    cp_async4(dst + r * ld + c, bh + static_cast<size_t>(tok[r]) * t + tok[c]);
+  }
+  cp_async_commit();
+}
 
 // Copy a [64][n] T block from shared memory to global rows.
 template <typename T>
@@ -446,7 +747,12 @@ __device__ inline void store_rows(const T* src, int lds, T* dst, int ldd,
 // additive attention bias between local rows r and c for head h.
 // Forward kernels (kRecompute false) write the block output to out.
 // The backward's recompute (kRecompute true) skips fc2, keeps x2 in
-// s.X, and writes the per-token operands and row statistics to sp.
+// s.X, and writes the per-token operands and row statistics to sp; in
+// bf16 it stages x's rows through sp.ring (stage_rows), streams the
+// weights through the ring (gemm64_staged), runs the attention products
+// through ldmatrix and stages each head's bias slice into the scores
+// buffer (stage_bias) under the qkv product: the same result bit for
+// bit.
 // The residual input x (XT) and the output out (OT) are T or f32
 // whatever the compute type T: the pair kernels feed block A's f32
 // output, never rounded, to block B.
@@ -463,10 +769,21 @@ __device__ inline void block_forward(const FwdWeights& wt, const Dims& d,
   const T* bm1 = static_cast<const T*>(wt.bm1);
   const T* w2 = static_cast<const T*>(wt.w2);
   const int c = d.c, hp = d.hp;
+  constexpr bool kStaged = kRecompute && std::is_same_v<T, bf16>;
 
-  for (int i = threadIdx.x; i < NW * c; i += THREADS) {
-    const int r = i / c, cc = i % c;
-    s.X[r * s.ldx + cc] = to_f32(x[x_row(r) * c + cc]);
+  if constexpr (kStaged) {
+    // x rows through the ring: no load chain per element
+    const XT* xs = reinterpret_cast<const XT*>(sp.ring);
+    stage_rows(reinterpret_cast<XT*>(sp.ring), x, sp.row0, sp.tok, c);
+    cp_async_wait<0>();
+    __syncthreads();
+    for (int i = threadIdx.x; i < NW * c; i += THREADS)
+      s.X[(i / c) * s.ldx + i % c] = to_f32(xs[i]);
+  } else {
+    for (int i = threadIdx.x; i < NW * c; i += THREADS) {
+      const int r = i / c, cc = i % c;
+      s.X[r * s.ldx + cc] = to_f32(x[x_row(r) * c + cc]);
+    }
   }
   __syncthreads();
   layer_norm<T>(s.X, s.ldx, wt.g1, wt.b1, s.Y, s.ldy, d,
@@ -477,29 +794,40 @@ __device__ inline void block_forward(const FwdWeights& wt, const Dims& d,
 
   for (int h = 0; h < d.heads; ++h) {
     const T* bq = bqkv + h * 3 * hp;
-    gemm64<T>(s.Y, s.ldy, wqkv + static_cast<size_t>(h) * 3 * hp * d.ck,
-              d.ck, d.ck, 3 * hp,
-              [&](int r, int col, float v0, float v1) {
-                const float vs[2] = {v0, v1};
+    const T* wq = wqkv + static_cast<size_t>(h) * 3 * hp * d.ck;
+    auto qkv_epi = [&](int r, int col, float v0, float v1) {
+      const float vs[2] = {v0, v1};
 #pragma unroll
-                for (int e = 0; e < 2; ++e) {
-                  const int cc = col + e;
-                  const T v = from_f32<T>(rnd<T>(vs[e]) + to_f32(bq[cc]));
-                  const int part = cc / hp, lane = cc % hp;
-                  if (part == 0) s.Q[r * s.ldq + lane] = v;
-                  else if (part == 1) s.K[r * s.ldq + lane] = v;
-                  else s.Vt[lane * s.ldvt + r] = v;
-                  if constexpr (kRecompute)
-                    sp.qkv[r * 3 * d.ca + (part * d.heads + h) * hp + lane] =
-                        v;
-                }
-              });
-    __syncthreads();
-    gemm64<T>(s.Q, s.ldq, s.K, s.ldq, hp, NW,
-              [&](int r, int col, float v0, float v1) {
-                s.S[r * s.lds + col] = v0 + bias_at(h, r, col);
-                s.S[r * s.lds + col + 1] = v1 + bias_at(h, r, col + 1);
-              });
+      for (int e = 0; e < 2; ++e) {
+        const int cc = col + e;
+        const T v = from_f32<T>(rnd<T>(vs[e]) + to_f32(bq[cc]));
+        const int part = cc / hp, lane = cc % hp;
+        if (part == 0) s.Q[r * s.ldq + lane] = v;
+        else if (part == 1) s.K[r * s.ldq + lane] = v;
+        else s.Vt[lane * s.ldvt + r] = v;
+        if constexpr (kRecompute)
+          sp.qkv[r * 3 * d.ca + (part * d.heads + h) * hp + lane] = v;
+      }
+    };
+    if constexpr (kStaged) {
+      stage_bias(sp.bias, sp.tok, sp.t, h, s.S, s.lds);
+      gemm64_st<false>(s.Y, s.ldy, wq, d.ck, d.ck, 3 * hp, sp.ring,
+                       qkv_epi);
+      __syncthreads();
+      gemm64_ldsm<false, false>(s.Q, s.ldq, s.K, s.ldq, hp, NW,
+                                [&](int r, int col, float v0, float v1) {
+                                  s.S[r * s.lds + col] += v0;
+                                  s.S[r * s.lds + col + 1] += v1;
+                                });
+    } else {
+      gemm64<T>(s.Y, s.ldy, wq, d.ck, d.ck, 3 * hp, qkv_epi);
+      __syncthreads();
+      gemm64<T>(s.Q, s.ldq, s.K, s.ldq, hp, NW,
+                [&](int r, int col, float v0, float v1) {
+                  s.S[r * s.lds + col] = v0 + bias_at(h, r, col);
+                  s.S[r * s.lds + col + 1] = v1 + bias_at(h, r, col + 1);
+                });
+    }
     __syncthreads();
     {
       const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -515,23 +843,27 @@ __device__ inline void block_forward(const FwdWeights& wt, const Dims& d,
       }
     }
     __syncthreads();
-    gemm64<T>(s.P, s.ldp, s.Vt, s.ldvt, NW, hp,
-              [&](int r, int col, float v0, float v1) {
-                s.O[r * s.ldo + h * hp + col] = from_f32<T>(v0 * s.rinv[r]);
-                s.O[r * s.ldo + h * hp + col + 1] =
-                    from_f32<T>(v1 * s.rinv[r]);
-              });
+    auto pv_epi = [&](int r, int col, float v0, float v1) {
+      s.O[r * s.ldo + h * hp + col] = from_f32<T>(v0 * s.rinv[r]);
+      s.O[r * s.ldo + h * hp + col + 1] = from_f32<T>(v1 * s.rinv[r]);
+    };
+    if constexpr (kStaged)
+      gemm64_ldsm<false, false>(s.P, s.ldp, s.Vt, s.ldvt, NW, hp, pv_epi);
+    else
+      gemm64<T>(s.P, s.ldp, s.Vt, s.ldvt, NW, hp, pv_epi);
     __syncthreads();
   }
   if constexpr (kRecompute) store_rows(s.O, s.ldo, sp.o, d.ca, d.ca);
 
   // x2 = x + (O . Wproj + bproj), in place in X
-  gemm64<T>(s.O, s.ldo, wproj, d.ca, d.ca, d.cn,
-            [&](int r, int col, float v0, float v1) {
-              if (col < c) s.X[r * s.ldx + col] += v0 + wt.bproj[col];
-              if (col + 1 < c)
-                s.X[r * s.ldx + col + 1] += v1 + wt.bproj[col + 1];
-            });
+  auto proj_epi = [&](int r, int col, float v0, float v1) {
+    if (col < c) s.X[r * s.ldx + col] += v0 + wt.bproj[col];
+    if (col + 1 < c) s.X[r * s.ldx + col + 1] += v1 + wt.bproj[col + 1];
+  };
+  if constexpr (kStaged)
+    gemm64_st<false>(s.O, s.ldo, wproj, d.ca, d.ca, d.cn, sp.ring, proj_epi);
+  else
+    gemm64<T>(s.O, s.ldo, wproj, d.ca, d.ca, d.cn, proj_epi);
   __syncthreads();
   layer_norm<T>(s.X, s.ldx, wt.g2, wt.b2, s.Y, s.ldy, d,
                 kRecompute ? sp.mu2 : nullptr,
@@ -539,17 +871,27 @@ __device__ inline void block_forward(const FwdWeights& wt, const Dims& d,
   __syncthreads();
   if constexpr (kRecompute) {
     store_rows(s.Y, s.ldy, sp.y2, d.ck, d.ck);
-    gemm64<T>(s.Y, s.ldy, w1, d.ck, d.ck, d.chp,
-              [&](int r, int col, float v0, float v1) {
-                const float vs[2] = {v0, v1};
+    // bf16: gelu'(u) goes to shared memory for the backward's dh
+    // epilogue (exact in T); f32: u to the workspace
+    auto fc1_epi = [&](int r, int col, float v0, float v1) {
+      const float vs[2] = {v0, v1};
 #pragma unroll
-                for (int e = 0; e < 2; ++e) {
-                  const float u =
-                      rnd<T>(rnd<T>(vs[e]) + to_f32(bm1[col + e]));
-                  sp.u[r * d.chp + col + e] = from_f32<T>(u);
-                  sp.hact[r * d.chp + col + e] = from_f32<T>(gelu<T>(u));
-                }
-              });
+      for (int e = 0; e < 2; ++e) {
+        const float u = rnd<T>(rnd<T>(vs[e]) + to_f32(bm1[col + e]));
+        if constexpr (kStaged) {
+          const float th = gelu_tanh<T>(u);   // shared by both
+          sp.gg[r * sp.ldgg + col + e] = from_f32<T>(gelu_grad_th<T>(u, th));
+          sp.hact[r * d.chp + col + e] = from_f32<T>(gelu_th<T>(u, th));
+        } else {
+          sp.u[r * d.chp + col + e] = from_f32<T>(u);
+          sp.hact[r * d.chp + col + e] = from_f32<T>(gelu<T>(u));
+        }
+      }
+    };
+    if constexpr (kStaged)
+      gemm64_st<false>(s.Y, s.ldy, w1, d.ck, d.ck, d.chp, sp.ring, fc1_epi);
+    else
+      gemm64<T>(s.Y, s.ldy, w1, d.ck, d.ck, d.chp, fc1_epi);
     __syncthreads();
     return;
   } else {

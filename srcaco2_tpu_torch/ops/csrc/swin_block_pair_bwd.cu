@@ -81,6 +81,8 @@ size_t window_smem(const Dims& d) {
 
 template <typename T>
 int launch(const BwdParams& p, cudaStream_t stream) {
+  if (std::is_same_v<T, bf16> && !ring_fits(p.d))
+    return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = window_smem<T>(p.d);
   cudaError_t err = allow_smem(swin_block_pair_bwd_window_kernel<T>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -629,9 +629,11 @@ def _check_x(x, compute_dtype, heads):
 def _check_packed(x, *packs):
     for packed in packs:
         for name, ten in packed._asdict().items():
-            if ten.device != x.device or not ten.is_contiguous():
+            # the backward kernels copy weight rows 16 bytes at a time
+            if (ten.device != x.device or not ten.is_contiguous()
+                    or ten.data_ptr() % 16):
                 raise ValueError(f'packed.{name} must be contiguous on '
-                                 f'{x.device}')
+                                 f'{x.device}, 16-byte aligned')
 
 
 def _check_bias_window(x, bias, idx, heads):

@@ -241,28 +241,46 @@ def emu_window_bwd(L, g, sv, bias, tok, pair_rounding):
     return dx, terms, ds_all
 
 
+# windows per token split of the reduction's weight products (SPLIT_ROWS
+# = 2048 tokens) and per chunk of its column sums (CS_ROWS = 256 rows of
+# per-16-token partials), swin_block_bwd_common.cuh
+SPLIT_WINDOWS, CS_WINDOWS = 2048 // 64, 256 // 4
+WEIGHT_TERMS = ('dwqkv', 'dwproj', 'dw1', 'dw2')
+
+
 class EmuGrads:
     """The reduction pass: every window's terms summed into the weight
-    grads (in the kernels' padded layout) and ds into dbias."""
+    grads (in the kernels' padded layout) and ds into dbias, in the
+    reduction's order: per token split (weight products) or chunk
+    (column sums) in window order, then the splits or chunks in order."""
 
     def __init__(self, L, bias):
         c, ca = L['c'], L['ca']
         self.c = c
-        self.gp = dict(dwqkv=torch.zeros(c + 1, 3 * ca),
-                       dwproj=torch.zeros(ca, c),
-                       dw1=torch.zeros(c, L['ch']), dw2=torch.zeros(L['ch'], c),
-                       dbm1=torch.zeros(L['chp']), **{k: torch.zeros(c) for k in (
-                           'dg1', 'db1', 'dg2', 'db2', 'dbproj', 'dbm2')})
+        self.zeros = dict(dwqkv=(c + 1, 3 * ca), dwproj=(ca, c),
+                          dw1=(c, L['ch']), dw2=(L['ch'], c),
+                          dbm1=(L['chp'],), **{k: (c,) for k in (
+                              'dg1', 'db1', 'dg2', 'db2', 'dbproj', 'dbm2')})
+        self.parts = {k: [] for k in self.zeros}
+        self.n = 0
         self.dbias = torch.zeros_like(bias)
 
     def add(self, terms, ds, tok):
         for k, v in terms.items():
-            self.gp[k] += v
+            per = SPLIT_WINDOWS if k in WEIGHT_TERMS else CS_WINDOWS
+            if self.n % per == 0:
+                self.parts[k].append(torch.zeros(self.zeros[k]))
+            self.parts[k][-1] += v
+        self.n += 1
         for h in range(ds.shape[0]):
             self.dbias[h][tok[:, None], tok[None, :]] += ds[h]
 
     def result(self):
-        gp = dict(self.gp)
+        gp = {}
+        for k, parts in self.parts.items():
+            gp[k] = torch.zeros(self.zeros[k])
+            for part in parts:
+                gp[k] += part
         gp['dbqkv'] = gp['dwqkv'][self.c]
         gp['dwqkv'] = gp['dwqkv'][:self.c]
         return gp, self.dbias
