@@ -10,16 +10,19 @@ Phases, in this order, each printing one JSON line; any failure exits
 non-zero:
   card          name and power limit (nvidia-smi), torch and CUDA versions
   build         nvcc build of every kernel source under
-                srcaco2_tpu_torch/ops/csrc; each kernel's shared memory
+                srcaco2_tpu_torch/ops/csrc; each kernel's shared memory,
+                registers and spills (-Xptxas -v)
   kernel_check  K5 (tiled block forward) against its plain PyTorch
                 version on the card at the serving shapes, f32 and bf16,
-                with stated tolerances
+                with stated tolerances; two K5 calls on the same inputs
+                must agree bit for bit
   kernel_time   median ms of K5 and its plain version beside the least
                 time the card could take (bound)
   kernel_check_train  K1 (block forward) and K2 (block backward: dx, 12
                 weight grads, dbias) against their plain versions at
                 bench.py's training shapes, shifts 0 and 4, f32 and bf16;
-                two K2 calls on the same inputs must agree bit for bit
+                two K1 calls, and two K2 calls, on the same inputs must
+                agree bit for bit
   kernel_time_train   median ms of K1 and K2 and of their plain versions
                 beside their bounds; K2's window and reduction passes
                 apart (torch.profiler), and its reduction's four weight
@@ -27,7 +30,7 @@ non-zero:
   kernel_check_pair   K3 (pair forward) and K4 (pair backward: dx, 24
                 weight grads, both dbias) against their plain versions at
                 the same shapes (blocks with shifts 0 and 4), f32 and bf16;
-                two K4 calls must agree bit for bit
+                two K3 calls, and two K4 calls, must agree bit for bit
   kernel_time_pair    median ms of K3 and K4 and of their plain versions
                 beside their bounds; K4's passes and yardstick as K2's
   kernel_check_wmsa   K6 (windowed attention forward) against its plain
@@ -286,6 +289,8 @@ def kernel_check_train(dev, gen):
             packed_bwd = sb.pack_block_bwd_params(params, HEADS, dt)
             out_k = sb.swin_block_fwd(xd, bias, idx, packed, heads=HEADS,
                                       compute_dtype=dt)
+            fwd_same = bit_identical(out_k, sb.swin_block_fwd(
+                xd, bias, idx, packed, heads=HEADS, compute_dtype=dt))
             dx_k, gp, db_k = sb.swin_block_bwd(
                 xd, dd, bias, idx, packed, packed_bwd, heads=HEADS,
                 compute_dtype=dt, ch=CH)
@@ -306,9 +311,11 @@ def kernel_check_train(dev, gen):
             errs = check_tensors(pairs, name, elementwise_out=True)
             zero_off = bool((db_k[off_window] == 0).all())
             rec = dict(shift=shift, dtype=name, dbias_zero_off_window=zero_off,
+                       fwd_bit_identical_twice=fwd_same,
                        bwd_bit_identical_twice=same,
                        all_ok=all(e['ok'] for e in errs.values()) and zero_off
-                       and same, errs=errs, tol=TRAIN_TOL[name])
+                       and same and fwd_same, errs=errs,
+                       tol=TRAIN_TOL[name])
             recs.append(rec)
             ok = ok and rec['all_ok']
             del out_k, dx_k, gp, db_k, out_r, dx_r, g_r, db_r, pairs
@@ -464,6 +471,9 @@ def kernel_check_pair(dev, gen):
         (pk_a, pk_b), (pw_a, pw_b) = pair_packs(pa, pb, dt)
         out_k = sb.swin_block_pair_fwd(xd, ba, idx[0], pk_a, bb, idx[1],
                                        pk_b, heads=HEADS, compute_dtype=dt)
+        fwd_same = bit_identical(out_k, sb.swin_block_pair_fwd(
+            xd, ba, idx[0], pk_a, bb, idx[1], pk_b, heads=HEADS,
+            compute_dtype=dt))
         dx_k, gpa, dba_k, gpb, dbb_k = sb.swin_block_pair_bwd(
             xd, dd, ba, idx[0], pk_a, pw_a, bb, idx[1], pk_b, pw_b,
             heads=HEADS, compute_dtype=dt, ch=CH)
@@ -487,9 +497,10 @@ def kernel_check_pair(dev, gen):
         zero_off = bool((dba_k[off[0]] == 0).all()
                         and (dbb_k[off[1]] == 0).all())
         rec = dict(dtype=name, dbias_zero_off_window=zero_off,
+                   fwd_bit_identical_twice=fwd_same,
                    bwd_bit_identical_twice=same,
                    all_ok=all(e['ok'] for e in errs.values()) and zero_off
-                   and same,
+                   and same and fwd_same,
                    worst_rel_l2=max(errs, key=lambda k: errs[k]['rel_l2']),
                    errs=errs, tol=TRAIN_TOL[name])
         if name == 'bf16':
@@ -626,6 +637,33 @@ def smem_bytes(build):
     fn.argtypes = [ctypes.c_int] * 2
     fn.restype = ctypes.c_longlong
     out['window_attention'] = int(fn(C, HEADS))
+    return out
+
+
+def ptxas_kernels(logs):
+    """{kernel<type>: registers, stack and spill bytes} of every kernel
+    entry in the nvcc logs (-Xptxas -v)."""
+    import re
+    out, name = {}, None
+    for log in logs.values():
+        for ln in log.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", ln)
+            if m:
+                k = re.search(r'\d+([a-z][a-z_]*_kernel)(I?)', m.group(1))
+                name = k.group(1) if k else m.group(1)
+                if k and k.group(2):    # a template over the compute type
+                    name += ('<bf16>' if 'bfloat16' in m.group(1)
+                             else '<f32>')
+                out[name] = {}
+            m = re.search(r'(\d+) bytes stack frame, (\d+) bytes spill '
+                          r'stores, (\d+) bytes spill loads', ln)
+            if m and name:
+                out[name].update(stack=int(m.group(1)),
+                                 spill_stores=int(m.group(2)),
+                                 spill_loads=int(m.group(3)))
+            m = re.search(r'Used (\d+) registers', ln)
+            if m and name:
+                out[name]['registers'] = int(m.group(1))
     return out
 
 
@@ -1078,10 +1116,8 @@ def main() -> int:
         with open(os.path.join(out_dir, 'build_log.txt'), 'w') as f:
             for stem, log in logs.items():
                 f.write(f'== {stem}.cu\n{log}\n')
-    ptxas = [ln.strip() for log in logs.values() for ln in log.splitlines()
-             if 'registers' in ln or 'spill' in ln]
-    emit('build', seconds=build_s, built=sorted(logs), ptxas=ptxas,
-         smem_bytes=smem_bytes(build))
+    emit('build', seconds=build_s, built=sorted(logs),
+         kernels=ptxas_kernels(logs), smem_bytes=smem_bytes(build))
 
     gen = torch.Generator().manual_seed(0)
     x, params, groups, gid = block_inputs(dev, gen)
@@ -1090,6 +1126,8 @@ def main() -> int:
         xd = x.to(dt)
         out_k = sb.fused_swin_block_grouped(xd, params, groups, gid,
                                             heads=HEADS, compute_dtype=dt)
+        same = bit_identical(out_k, sb.fused_swin_block_grouped(
+            xd, params, groups, gid, heads=HEADS, compute_dtype=dt))
         torch.cuda.synchronize()
         out_r = sb.swin_block_grouped_ref(xd, params, groups, gid,
                                           heads=HEADS, compute_dtype=dt)
@@ -1101,11 +1139,13 @@ def main() -> int:
                           max_rel_err=float((diff / ref_abs.clamp_min(1e-3))
                                             .max()),
                           n_outside=bad, finite=bool(
-                              torch.isfinite(out_k.float()).all()), **tol)
+                              torch.isfinite(out_k.float()).all()),
+                          fwd_bit_identical_twice=same, **tol)
     rec = emit('kernel_check', kernel='swin_block_grouped',
                shape=list(x.shape), heads=HEADS, groups=groups.shape[0],
                **errs)
-    if any(e['n_outside'] or not e['finite'] for e in errs.values()):
+    if any(e['n_outside'] or not e['finite']
+           or not e['fwd_bit_identical_twice'] for e in errs.values()):
         print('chip_smoke: kernel_check failed', file=sys.stderr)
         return 1
 

@@ -77,7 +77,7 @@ PROBES = [
 HEAD_PROBES = [
     ('swin_block_common.cuh', '    const T* wq = wqkv + static_cast<size_t>(h)'
      ' * 3 * hp * d.ck;\n', 20, None, None),
-    ('swin_block_common.cuh', '                       qkv_epi);\n'
+    ('swin_block_common.cuh', '                           qkv_epi);\n'
      '      __syncthreads();\n', 21, 'recompute: bias slice, qkv', 20),
     ('swin_block_common.cuh', '    {\n      const int warp = threadIdx.x >> 5,'
      ' lane = threadIdx.x & 31;\n      for (int r = warp; r < NW;', -22,

@@ -125,35 +125,6 @@ __host__ __device__ inline bool ring_fits(const Dims& d) {
 template <typename T, bool kPair>
 using DpType = std::conditional_t<kPair, float, T>;
 
-// The small weight vectors the window backward reads in its epilogues and
-// LayerNorms, copied to shared memory (bf16): g1, b1, g2, b2, bproj (f32,
-// c each), bqkv (T, 3 ca), bm1 (T, chp).
-__host__ __device__ inline size_t vec_bytes(const Dims& d) {
-  return sizeof(float) * 5 * d.c + sizeof(bf16) * (3 * d.ca + d.chp);
-}
-
-__device__ inline FwdWeights stage_vectors(const FwdWeights& w,
-                                           const Dims& d, float* vec) {
-  const int c = d.c;
-  bf16* tv = reinterpret_cast<bf16*>(vec + 5 * c);
-  const float* src[5] = {w.g1, w.b1, w.g2, w.b2, w.bproj};
-  for (int i = threadIdx.x; i < 5 * c; i += THREADS)
-    vec[i] = src[i / c][i % c];
-  const bf16* bq = static_cast<const bf16*>(w.bqkv);
-  const bf16* bm = static_cast<const bf16*>(w.bm1);
-  for (int i = threadIdx.x; i < 3 * d.ca + d.chp; i += THREADS)
-    tv[i] = i < 3 * d.ca ? bq[i] : bm[i - 3 * d.ca];
-  FwdWeights v = w;
-  v.g1 = vec;
-  v.b1 = vec + c;
-  v.g2 = vec + 2 * c;
-  v.b2 = vec + 3 * c;
-  v.bproj = vec + 4 * c;
-  v.bqkv = tv;
-  v.bm1 = tv + 3 * d.ca;
-  return v;
-}
-
 template <typename T, bool kPair>
 __host__ __device__ inline BwdLayout make_bwd_layout(const Dims& d) {
   int ld[8];
@@ -322,8 +293,8 @@ __device__ inline void window_backward(const BwdParams& p, const BlockBwd& b,
   auto bias_at = [&](int h, int r, int cc) {
     return b.bias[(h * tt + tok_s[r]) * tt + tok_s[cc]];
   };
-  block_forward<T, true>(w, d, s, x, static_cast<T*>(nullptr), x_row,
-                         bias_at, sp);
+  block_forward<T, true, std::is_same_v<T, bf16>, THREADS>(
+      w, d, s, x, static_cast<T*>(nullptr), x_row, bias_at, sp);
 
   float* X = s.X;     // x2, then dx2 (f32)
   T* Y = s.Y;         // g in T, then dx2 (T)

@@ -22,7 +22,12 @@
 // through the window index table (ops/swin_block.py:window_index: the
 // roll by -shift and the window partition), runs the block body shared
 // with K5 (swin_block_common.cuh) and writes its rows of the output
-// through the same table.
+// through the same table. At these shapes the body is latency-bound, not
+// bound by operations or bytes: in bf16 it runs staged (x rows, bias
+// slices and weight vectors copied to shared memory by cp.async, the
+// weights streamed through a cp.async ring, ldmatrix fragments) with 16
+// warps per window, so that more warps hide each other's latencies; the
+// f32 instantiation runs the unstaged body with 8.
 #include "swin_block_common.cuh"
 
 namespace {
@@ -40,30 +45,43 @@ struct Params {
 };
 
 template <typename T>
-__global__ void __launch_bounds__(THREADS) swin_block_fwd_kernel(
+__global__ void __launch_bounds__(kFwdThreads<T>) swin_block_fwd_kernel(
     const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const FwdSmem<T> s = fwd_smem<T>(smem, p.d, make_fwd_layout<T>(p.d));
+  constexpr bool kStaged = std::is_same_v<T, bf16>;
+  const FwdLayout L = make_fwd_layout<T>(p.d, kStaged);
+  const FwdSmem<T> s = fwd_smem<T>(smem, p.d, L);
   const int img = blockIdx.x / p.nwin, win = blockIdx.x % p.nwin;
   const int* tok = p.idx + win * NW;
   const size_t row0 = static_cast<size_t>(img) * p.t;
   const size_t tt = p.t;
-  block_forward<T, false>(
-      p.w, p.d, s, static_cast<const T*>(p.x), static_cast<T*>(p.out),
+  FwdWeights w = p.w;
+  Spill<T> sp{};
+  if constexpr (kStaged) {
+    w = stage_vectors<kFwdThreads<T>>(p.w, p.d,
+                                      reinterpret_cast<float*>(smem + L.vec));
+    sp = fwd_stage<T>(smem, L, [&](int r) { return tok[r]; }, p.bias, p.t,
+                      row0);
+  }
+  block_forward<T, false, kStaged, kFwdThreads<T>>(
+      w, p.d, s, static_cast<const T*>(p.x), static_cast<T*>(p.out),
       [&](int r) { return row0 + tok[r]; },
       [&](int h, int r, int c) {
         return p.bias[(h * tt + tok[r]) * tt + tok[c]];
       },
-      Spill<T>{});
+      sp);
 }
 
 template <typename T>
 int launch(const Params& p, int n_img, cudaStream_t stream) {
-  const FwdLayout L = make_fwd_layout<T>(p.d);
+  constexpr bool kStaged = std::is_same_v<T, bf16>;
+  if (kStaged && !fwd_ring_fits<T>(p.d))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const FwdLayout L = make_fwd_layout<T>(p.d, kStaged);
   cudaError_t err = allow_smem(swin_block_fwd_kernel<T>, L.total);
   if (err != cudaSuccess) return static_cast<int>(err);
   swin_block_fwd_kernel<T>
-      <<<n_img * p.nwin, THREADS, L.total, stream>>>(p);
+      <<<n_img * p.nwin, kFwdThreads<T>, L.total, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -94,8 +112,9 @@ extern "C" int swin_block_fwd(int compute_bf16, const void* const* ptrs,
 extern "C" long long swin_block_fwd_smem(int compute_bf16, int c,
     int heads, int ch) {
   return static_cast<long long>(
-      compute_bf16 ? make_fwd_layout<bf16>(make_dims(c, heads, ch)).total
-                   : make_fwd_layout<float>(make_dims(c, heads, ch)).total);
+      compute_bf16
+          ? make_fwd_layout<bf16>(make_dims(c, heads, ch), true).total
+          : make_fwd_layout<float>(make_dims(c, heads, ch)).total);
 }
 
 extern "C" const char* swin_error_name(int code) {

@@ -15,11 +15,14 @@
 // windows with -1e9 off the diagonal blocks; exp(s - 1e9 - m) is exactly
 // 0 in f32, so attention inside each 64-token window over that window's
 // 64x64 slice of the group bias is the same function at a quarter of the
-// attention FLOPs. One CTA (8 warps) owns one window: its residual rows
-// (f32), the LN output, one head's q/k/v, the scores and the MLP hidden
-// activations all stay in shared memory, so x is read once and the block
-// output written once. The block body (swin_block_common.cuh) is shared
-// with the training-patch forward (K1) and the backward's recompute (K2).
+// attention FLOPs. One CTA owns one window: its residual rows (f32), the
+// LN output, one head's q/k/v, the scores and the MLP hidden activations
+// all stay in shared memory, so x is read once and the block output
+// written once. The block body (swin_block_common.cuh) is shared with the
+// training-patch forward (K1) and the backward's recompute (K2); it is
+// latency-bound here, so in bf16 it runs staged (cp.async copies and
+// ring, ldmatrix fragments) with 16 warps per window, and in f32
+// unstaged with 8.
 #include "swin_block_common.cuh"
 
 namespace {
@@ -40,10 +43,12 @@ struct Params {
 };
 
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(kFwdThreads<T>)
 swin_block_grouped_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const FwdSmem<T> s = fwd_smem<T>(smem, p.d, make_fwd_layout<T>(p.d));
+  constexpr bool kStaged = std::is_same_v<T, bf16>;
+  const FwdLayout L = make_fwd_layout<T>(p.d, kStaged);
+  const FwdSmem<T> s = fwd_smem<T>(smem, p.d, L);
   const int tile = blockIdx.x >> 2, win = blockIdx.x & 3;
   const int grp = p.gid[tile];
   if (grp < 0 || grp >= p.n_groups) __trap();
@@ -54,22 +59,32 @@ swin_block_grouped_kernel(const Params p) {
   const size_t row0 = static_cast<size_t>(tile) * TT;
   const float* bias_g =
       p.bias + static_cast<size_t>(grp) * p.d.heads * TT * TT;
-  block_forward<T, false>(
-      p.w, p.d, s, static_cast<const T*>(p.x), static_cast<T*>(p.out),
+  FwdWeights w = p.w;
+  Spill<T> sp{};
+  if constexpr (kStaged) {
+    w = stage_vectors<kFwdThreads<T>>(p.w, p.d,
+                                      reinterpret_cast<float*>(smem + L.vec));
+    sp = fwd_stage<T>(smem, L, tok, bias_g, TT, row0);
+  }
+  block_forward<T, false, kStaged, kFwdThreads<T>>(
+      w, p.d, s, static_cast<const T*>(p.x), static_cast<T*>(p.out),
       [&](int r) { return row0 + tok(r); },
       [&](int h, int r, int c) {
         return bias_g[(static_cast<size_t>(h) * TT + tok(r)) * TT + tok(c)];
       },
-      Spill<T>{});
+      sp);
 }
 
 template <typename T>
 int launch(const Params& p, int n_tiles, cudaStream_t stream) {
-  const FwdLayout L = make_fwd_layout<T>(p.d);
+  constexpr bool kStaged = std::is_same_v<T, bf16>;
+  if (kStaged && !fwd_ring_fits<T>(p.d))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const FwdLayout L = make_fwd_layout<T>(p.d, kStaged);
   cudaError_t err = allow_smem(swin_block_grouped_kernel<T>, L.total);
   if (err != cudaSuccess) return static_cast<int>(err);
   swin_block_grouped_kernel<T>
-      <<<n_tiles * 4, THREADS, L.total, stream>>>(p);
+      <<<n_tiles * 4, kFwdThreads<T>, L.total, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -100,8 +115,9 @@ extern "C" int swin_block_grouped_fwd(
 extern "C" long long swin_block_grouped_smem(int compute_bf16, int c,
     int heads, int ch) {
   return static_cast<long long>(
-      compute_bf16 ? make_fwd_layout<bf16>(make_dims(c, heads, ch)).total
-                   : make_fwd_layout<float>(make_dims(c, heads, ch)).total);
+      compute_bf16
+          ? make_fwd_layout<bf16>(make_dims(c, heads, ch), true).total
+          : make_fwd_layout<float>(make_dims(c, heads, ch)).total);
 }
 
 extern "C" const char* swin_error_name(int code) {

@@ -56,9 +56,9 @@ swin_block_pair_bwd_window_kernel(const BwdParams p) {
   const BlockBwd& a = p.blk[0];
   const BlockBwd& b = p.blk[1];
   // a. A's forward: x (T) -> B's input (f32)
-  patch_forward<T>(a.w, p.d, fwd_smem<T>(smem, p.d, make_fwd_layout<T>(p.d)),
-                   a.idx, a.bias, p.t, img, static_cast<const T*>(a.x),
-                   static_cast<float*>(const_cast<void*>(b.x)));
+  patch_forward<T, false, THREADS>(
+      a.w, p.d, smem, make_fwd_layout<T>(p.d), a.idx, a.bias, p.t, img,
+      static_cast<const T*>(a.x), static_cast<float*>(const_cast<void*>(b.x)));
   // b. B's backward: input f32, grad dout (T), dx f32 (A's grad)
   for (int win = 0; win < p.nwin; ++win) {
     window_backward<T, true, float, T, float>(p, b, img * p.nwin + win,

@@ -18,7 +18,8 @@
 // same 256 tokens differently, so B's first window needs A's output of
 // the whole patch. One CTA owns one patch: it runs A over each of the
 // patch's windows with the block body shared with K1/K5
-// (swin_block_common.cuh), writing A's output rows in f32 to a scratch
+// (swin_block_common.cuh; in bf16 staged, with 16 warps, B's f32 input
+// rows staged as K1's are), writing A's output rows in f32 to a scratch
 // array in global memory (n_img x t x C f32, ~23.6 MB at batch 128, which
 // stays in L2), then, after a barrier of the CTA, B over each of its
 // windows, reading its input rows from that scratch and writing the
@@ -43,23 +44,33 @@ struct Params {
 };
 
 template <typename T>
-__global__ void __launch_bounds__(THREADS) swin_block_pair_fwd_kernel(
+__global__ void __launch_bounds__(kFwdThreads<T>) swin_block_pair_fwd_kernel(
     const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const FwdSmem<T> s = fwd_smem<T>(smem, p.d, make_fwd_layout<T>(p.d));
+  constexpr bool kStaged = std::is_same_v<T, bf16>;
+  constexpr int kThreads = kFwdThreads<T>;
+  const FwdLayout L = make_fwd_layout<T>(p.d, kStaged);
   const int img = blockIdx.x;
-  patch_forward<T>(p.w[0], p.d, s, p.idx[0], p.bias[0], p.t, img,
-                   static_cast<const T*>(p.x), p.mid);
-  patch_forward<T>(p.w[1], p.d, s, p.idx[1], p.bias[1], p.t, img,
-                   static_cast<const float*>(p.mid), static_cast<T*>(p.out));
+  patch_forward<T, kStaged, kThreads>(p.w[0], p.d, smem, L, p.idx[0],
+                                      p.bias[0], p.t, img,
+                                      static_cast<const T*>(p.x), p.mid);
+  patch_forward<T, kStaged, kThreads>(p.w[1], p.d, smem, L, p.idx[1],
+                                      p.bias[1], p.t, img,
+                                      static_cast<const float*>(p.mid),
+                                      static_cast<T*>(p.out));
 }
 
 template <typename T>
 int launch(const Params& p, int n_img, cudaStream_t stream) {
-  const FwdLayout L = make_fwd_layout<T>(p.d);
+  constexpr bool kStaged = std::is_same_v<T, bf16>;
+  // block B's f32 input rows are staged in the ring
+  if (kStaged && !fwd_ring_fits<float>(p.d))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const FwdLayout L = make_fwd_layout<T>(p.d, kStaged);
   cudaError_t err = allow_smem(swin_block_pair_fwd_kernel<T>, L.total);
   if (err != cudaSuccess) return static_cast<int>(err);
-  swin_block_pair_fwd_kernel<T><<<n_img, THREADS, L.total, stream>>>(p);
+  swin_block_pair_fwd_kernel<T>
+      <<<n_img, kFwdThreads<T>, L.total, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -95,8 +106,9 @@ extern "C" int swin_block_pair_fwd(int compute_bf16, const void* const* ptrs,
 extern "C" long long swin_block_pair_fwd_smem(int compute_bf16, int c,
     int heads, int ch) {
   return static_cast<long long>(
-      compute_bf16 ? make_fwd_layout<bf16>(make_dims(c, heads, ch)).total
-                   : make_fwd_layout<float>(make_dims(c, heads, ch)).total);
+      compute_bf16
+          ? make_fwd_layout<bf16>(make_dims(c, heads, ch), true).total
+          : make_fwd_layout<float>(make_dims(c, heads, ch)).total);
 }
 
 extern "C" const char* swin_error_name(int code) {
