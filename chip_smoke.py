@@ -36,12 +36,21 @@ non-zero:
   kernel_check_wmsa   K6 (windowed attention forward) against its plain
                 version, f32 and bf16: the eval shape (512 windows of 64
                 tokens, C=180, 6 heads) with no mask and with the shift-4
-                mask of a 64x64 image, and JAX's test shape (12 windows,
-                4 heads of 16, a random 0/-100 mask per window); K6
-                raises under grad
-  kernel_time_wmsa    median ms of K6 and its plain version beside its
-                bound, and of F.scaled_dot_product_attention on the same
-                q, k, v with a prebuilt additive mask (the library time)
+                mask of a 64x64 image, JAX's test shape (12 windows, 4
+                heads of 16, a random 0/-100 mask per window), 7x7
+                windows (N=49: unaligned window blocks), hd 64 (C=256, 4
+                heads) and C=512 (over the mma body's budget); in bf16
+                both bodies where the mma body takes the shape, each
+                also within one bf16 ulp plus 2^-15 of |v| of the plain
+                version and differing from it in at most 1% of the
+                outputs, two mma calls bit for bit, the mma body with an
+                f32 bias, and _k6_body's choice against the library's own
+                shape rule; K6 raises under grad
+  kernel_time_wmsa    median ms of K6 (the mma body), of the fma body and
+                of the plain version beside the bound, and of
+                F.scaled_dot_product_attention on the same q, k, v with a
+                prebuilt additive mask (the library time); call by call,
+                and the kernels also as CUDA-graph replays (graph_ms)
   serve         the x8 SwinIR flagship (bf16, random seeded weights, full
                 depth) served through SRServer: 3 requests, one with a
                 ragged tail; launch counts of the main path; images/s;
@@ -49,8 +58,8 @@ non-zero:
   serve_profile device time of one served batch by kernel (torch.profiler)
   eval_unfused  the unfused x8 flagship (use_pallas_attn, bf16, random
                 seeded weights, full depth) through make_eval_forward at
-                batch 8 on 64x64 LR: 36 K6 launches per forward and no
-                K1-K5; images/s, ms per batch, peak memory; the K6 path no
+                batch 8 on 64x64 LR: 36 K6 launches per forward, all
+                of the mma body, and no K1-K5; images/s, ms per batch, peak memory; the K6 path no
                 further from an f32 plain-path reference than the bf16
                 plain path; the metrics on the card against the CPU
   eval_unfused_profile  device time of one eval forward by kernel
@@ -120,6 +129,15 @@ WMSA_TOL = {
     # bf16: both round the f32 result once, so one output ulp
     'bf16': dict(atol=1e-2, rtol=2.0 ** -7),
 }
+# K6 in bf16, beside WMSA_TOL (wmsa_precision): both bodies keep the f32
+# function to ~2^-17 of the largest |v| that an output's sum takes (the
+# mma body's q.k^T products are exact, P is split into bf16 hi + lo), so
+# every output lies within one bf16 ulp of the plain version's plus
+# 2^-15 of that |v|, and few outputs differ at all (0.2% at the eval
+# shape). A body that dropped the P_lo pass, or rounded the scores to
+# bf16, misses both.
+WMSA_VMAX_SHARE = 2.0 ** -15
+WMSA_DIFFER_MAX = 0.01
 TRAIN_TOL = {
     # f32: only the order of f32 sums differs (K <= 360 inside a
     # window, 32768 tokens in the weight grads)
@@ -160,6 +178,40 @@ def cuda_ms(fn, reps=5, per=10):
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / per)
+    return statistics.median(times)
+
+
+def graph_ms(fn, reps=5, per=20):
+    """Median over `reps` replays of a CUDA graph of `per` back-to-back
+    calls of fn, per call (CUDA events): the device time without the
+    host's cost of each call, which a kernel of tens of microseconds
+    behind a Python wrapper does not hide."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(per):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / per)
+    # the graph's private memory pool holds the outputs of its calls:
+    # release it now, not when the graph object is collected
+    graph.reset()
     return statistics.median(times)
 
 
@@ -633,10 +685,15 @@ def smem_bytes(build):
         fn.restype = ctypes.c_longlong
         out[stem] = {dt: int(fn(bf, C, HEADS, CH))
                      for dt, bf in (('bf16', 1), ('f32', 0))}
-    fn = build.library('window_attention').window_attention_smem
+    lib = build.library('window_attention')
+    fn = lib.window_attention_smem
     fn.argtypes = [ctypes.c_int] * 2
     fn.restype = ctypes.c_longlong
     out['window_attention'] = int(fn(C, HEADS))
+    fn = lib.window_attention_mma_smem
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_longlong
+    out['window_attention_mma'] = int(fn(WS * WS, C, HEADS))
     return out
 
 
@@ -652,8 +709,10 @@ def ptxas_kernels(logs):
                 k = re.search(r'\d+([a-z][a-z_]*_kernel)(I?)', m.group(1))
                 name = k.group(1) if k else m.group(1)
                 if k and k.group(2):    # a template over the compute type
-                    name += ('<bf16>' if 'bfloat16' in m.group(1)
-                             else '<f32>')
+                    hp = re.search(r'_kernelILi(\d+)E', m.group(1))
+                    name += ('<' + (f'{hp.group(1)}, ' if hp else '')
+                             + ('bf16' if 'bfloat16' in m.group(1)
+                                else 'f32') + '>')
                 out[name] = {}
             m = re.search(r'(\d+) bytes stack frame, (\d+) bytes spill '
                           r'stores, (\d+) bytes spill loads', ln)
@@ -743,6 +802,9 @@ def kernel_wrappers():
 def reset_launches():
     for fn in kernel_wrappers().values():
         fn.launches = 0
+    bodies = kernel_wrappers()['wmsa'].body_launches
+    for k in bodies:
+        bodies[k] = 0
 
 
 def read_launches():
@@ -864,42 +926,143 @@ def wmsa_cases(dev, gen):
     def randn(*shape):
         return torch.randn(shape, generator=gen).to(dev)
 
+    def rand_mask(nw, n):
+        return torch.where(torch.rand((nw, n, n), generator=gen) < 0.2,
+                           -100.0, 0.0).to(dev)
+
     qkv, bias = randn(WMSA_W, WMSA_N, 3 * C), randn(HEADS, WMSA_N, WMSA_N)
     shift = torch.as_tensor(shift_attn_mask(LR, LR, WS, WS // 2)).to(dev)
-    small = torch.where(torch.rand((12, 64, 64), generator=gen) < 0.2,
-                        -100.0, 0.0).to(dev)
     return [('eval_no_mask', qkv, bias, None, HEADS),
             ('eval_shift_mask', qkv, bias, shift, HEADS),
-            ('jax_test_w12', randn(12, 64, 3 * 64), randn(4, 64, 64), small,
-             4)]
+            ('jax_test_w12', randn(12, 64, 3 * 64), randn(4, 64, 64),
+             rand_mask(12, 64), 4),
+            # 7x7 windows: odd windows' qkv and output blocks are not
+            # 16-byte aligned, rows of the bias and mask not 4-byte
+            ('n49', randn(24, 49, 3 * C), randn(HEADS, 49, 49),
+             rand_mask(8, 49), HEADS),
+            ('hd64', randn(32, 64, 3 * 256), randn(4, 64, 64),
+             rand_mask(32, 64), 4),
+            # a window block over the mma body's shared-memory budget:
+            # the fma body in bf16 too
+            ('c512', randn(16, 64, 3 * 512), randn(8, 64, 64), None, 8)]
+
+
+def wmsa_precision(out, ref, qkv):
+    """How close a bf16 K6 output (W, N, C) is to the plain version's
+    `ref` on qkv (W, N, 3C), beyond WMSA_TOL: the largest distance in
+    bf16 ulps (adjacent bf16 values are one apart), the outputs more
+    than one ulp apart, the outputs further apart than one ulp of the
+    larger magnitude plus WMSA_VMAX_SHARE of the largest |v| of their
+    window and column (none may be), and the share of outputs that
+    differ at all (at most WMSA_DIFFER_MAX)."""
+    import torch
+    o, r = out.float(), ref.float()
+    w, n, c3 = qkv.shape
+    vmax = qkv.float().reshape(w, n, 3, c3 // 3)[:, :, 2].abs().amax(
+        dim=1, keepdim=True)
+    _, e = torch.frexp(torch.maximum(o.abs(), r.abs()).clamp_min(2.0 ** -126))
+    ulp = torch.exp2((e - 8).float())
+    d = (o - r).abs()
+
+    def ordinal(t):         # bf16 bits as integers in the values' order
+        b = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(b < 0, -(b & 0x7fff), b)
+    ulps = (ordinal(out) - ordinal(ref)).abs()
+    beyond = int((d > ulp + WMSA_VMAX_SHARE * vmax).sum())
+    share = float((d > 0).float().mean())
+    return dict(max_ulps_vs_plain=int(ulps.max()),
+                n_over_one_ulp=int((ulps > 1).sum()),
+                n_outside_ulp_bound=beyond, share_differ_vs_plain=share,
+                vmax_share=WMSA_VMAX_SHARE, differ_max=WMSA_DIFFER_MAX,
+                ulp_ok=beyond == 0 and share <= WMSA_DIFFER_MAX)
+
+
+def wmsa_body_choice(build, shapes):
+    """[(n, c, heads, _k6_body's pick, the library's)] for bf16 qkv: the
+    wrapper's copy of the mma body's shape rule against the library's
+    own (window_attention_mma_smem >= 0)."""
+    import ctypes
+    import torch
+    from srcaco2_tpu_torch.ops import window_attention as wa
+    fn = build.library('window_attention').window_attention_mma_smem
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_longlong
+    return [(n, c, heads, wa._k6_body(torch.bfloat16, n, c, heads),
+             'mma' if fn(n, c, heads) >= 0 else 'fma')
+            for n, c, heads in shapes]
 
 
 def kernel_check_wmsa(dev, gen):
     """K6 against its plain version on every case of wmsa_cases, f32 and
     bf16 (bias in the compute dtype, as the model hands it over), under
-    WMSA_TOL; and K6 raises when autograd would need its gradient."""
+    WMSA_TOL: in bf16 both bodies where the mma body takes the shape,
+    each also under wmsa_precision, the body window_attention picks
+    (_k6_body) recorded and held against the library's own shape rule,
+    two calls of the mma body compared bit for bit, and the elements
+    where the bodies differ counted; and K6 raises when autograd would
+    need its gradient."""
     import torch
+    from srcaco2_tpu_torch.ops import build
     from srcaco2_tpu_torch.ops import window_attention as wa
     recs, ok = [], True
     cases = wmsa_cases(dev, gen)
+    # the cases' shapes and the edges of the mma body's rule: an odd
+    # head width, C = 418 (the largest window block in its budget), 420
+    choice = wmsa_body_choice(build, [
+        (q.shape[1], q.shape[2] // 3, h) for _, q, _, _, h in cases]
+        + [(64, 180, 4), (64, 418, 11), (64, 420, 10), (49, 418, 11)])
+    recs.append(dict(case='body_choice_vs_library', shapes=choice,
+                     ok=all(a == b for *_, a, b in choice)))
+    ok = recs[-1]['ok']
     for name, qkv, bias, mask, heads in cases:
         for dt_name, dt in (('f32', torch.float32), ('bf16', torch.bfloat16)):
             q, b = qkv.to(dt), bias.to(dt)
-            out_k = wa.window_attention(q, b, mask, heads=heads)
-            torch.cuda.synchronize()
+            w, n, c3 = q.shape
+            picked = wa._k6_body(dt, n, c3 // 3, heads)
             out_r = wa.window_attention_ref(q, b, mask, heads)
-            diff = (out_k.float() - out_r.float()).abs()
-            tol = WMSA_TOL[dt_name]
-            bad = int((diff > tol['atol']
-                       + tol['rtol'] * out_r.float().abs()).sum())
-            finite = bool(torch.isfinite(out_k.float()).all())
-            rec = dict(case=name, dtype=dt_name, shape=list(q.shape),
-                       heads=heads,
-                       n_mask=None if mask is None else mask.shape[0],
-                       max_abs_err=float(diff.max()), n_outside=bad,
-                       finite=finite, ok=bad == 0 and finite, **tol)
-            recs.append(rec)
-            ok = ok and rec['ok']
+            outs = {}
+            for body in dict.fromkeys((picked, 'fma')):
+                wa._check(q, b, mask, heads)
+                out_k = wa._run(body, q, b, mask, heads)
+                torch.cuda.synchronize()
+                diff = (out_k.float() - out_r.float()).abs()
+                tol = WMSA_TOL[dt_name]
+                bad = int((diff > tol['atol']
+                           + tol['rtol'] * out_r.float().abs()).sum())
+                finite = bool(torch.isfinite(out_k.float()).all())
+                rec = dict(case=name, dtype=dt_name, body=body,
+                           picked=body == picked, shape=list(q.shape),
+                           heads=heads,
+                           n_mask=None if mask is None else mask.shape[0],
+                           max_abs_err=float(diff.max()), n_outside=bad,
+                           n_differ_vs_plain=int((diff > 0).sum()),
+                           finite=finite, ok=bad == 0 and finite, **tol)
+                if dt_name == 'bf16':
+                    rec.update(wmsa_precision(out_k, out_r, q))
+                    rec['ok'] = rec['ok'] and rec['ulp_ok']
+                if body == 'mma':
+                    rec['bit_identical_twice'] = bit_identical(
+                        out_k, wa._run(body, q, b, mask, heads))
+                    rec['ok'] = rec['ok'] and rec['bit_identical_twice']
+                outs[body] = out_k
+                recs.append(rec)
+                ok = ok and rec['ok']
+            if 'mma' in outs:
+                recs[-2]['n_differ_vs_fma'] = int(
+                    (outs['mma'] != outs['fma']).sum())
+    # bf16 qkv with an f32 bias: the mma body reads the bias in f32
+    _, qkv, bias, mask, heads = cases[1]
+    q = qkv.to(torch.bfloat16)
+    ref = wa.window_attention_ref(q, bias, mask, heads)
+    out = wa._run('mma', q, bias, mask, heads)
+    diff = (out.float() - ref.float()).abs()
+    tol = WMSA_TOL['bf16']
+    bad = int((diff > tol['atol'] + tol['rtol'] * ref.float().abs()).sum())
+    recs.append(dict(case='eval_shift_mask_f32_bias', dtype='bf16',
+                     body='mma', picked=False, max_abs_err=float(diff.max()),
+                     n_outside=bad, **tol, **wmsa_precision(out, ref, q)))
+    recs[-1]['ok'] = bad == 0 and recs[-1]['ulp_ok']
+    ok = ok and recs[-1]['ok']
     q = cases[2][1].clone().requires_grad_(True)
     try:
         wa.window_attention(q, torch.zeros(4, 64, 64, device=dev), None,
@@ -913,17 +1076,29 @@ def kernel_check_wmsa(dev, gen):
 
 def kernel_time_wmsa(dev, gen):
     """Median ms of K6 (bf16, the eval shape, with the shift mask and
-    without) and of its plain version, beside the bound; and the library
-    time: F.scaled_dot_product_attention on the same q, k, v split into
-    (W, heads, N, hd) with the (W, heads, N, N) additive bias + mask
-    built beforehand (not timed)."""
+    without) through the body window_attention picks (the mma body) and
+    of the fma body (the parent's) through the private body choice, and
+    of its plain version, beside the bound; and the library time:
+    F.scaled_dot_product_attention on the same q, k, v split into (W,
+    heads, N, hd) with the (W, heads, N, N) additive bias + mask built
+    beforehand (not timed). Every `ms` is call by call (cuda_ms), as for
+    K1-K5, the wrapper's host code included; `graph_ms` replays CUDA
+    graphs of the same calls (the device time alone: the mma body takes
+    less time than its wrapper's host code). The plain version and the
+    library call are timed call by call only (cuBLAS would keep a
+    workspace for each stream that graph_ms runs it on)."""
     import torch
     import torch.nn.functional as F
     from srcaco2_tpu_torch.ops import window_attention as wa
     dt = torch.bfloat16
     _, qkv, bias, mask, _ = wmsa_cases(dev, gen)[1]
     q, b = qkv.to(dt), bias.to(dt)
-    ms = cuda_ms(lambda: wa.window_attention(q, b, mask, heads=HEADS))
+    body = wa._k6_body(dt, WMSA_N, C, HEADS)
+    calls = {body: lambda: wa.window_attention(q, b, mask, heads=HEADS),
+             'fma': lambda: wa._run('fma', q, b, mask, HEADS)}
+    body_ms = {k: cuda_ms(fn) for k, fn in calls.items()}
+    body_graph_ms = {k: graph_ms(fn) for k, fn in calls.items()}
+    ms = body_ms[body]
     ms_no_mask = cuda_ms(lambda: wa.window_attention(q, b, None,
                                                      heads=HEADS))
     plain_ms = cuda_ms(lambda: wa.window_attention_ref(q, b, mask, HEADS),
@@ -944,8 +1119,15 @@ def kernel_time_wmsa(dev, gen):
               + mask.numel() * mask.element_size())
     bnd = bound(4 * w * HEADS * n * n * hd, nbytes)
     return dict(kernel='window_attention', dtype='bf16', shape=list(q.shape),
-                heads=HEADS, mask='shift 4 of a 64x64 image (nW=64)', ms=ms,
-                ms_no_mask=ms_no_mask, plain_ms=plain_ms,
+                heads=HEADS, mask='shift 4 of a 64x64 image (nW=64)',
+                body=body, ms=ms, graph_ms=body_graph_ms[body],
+                ms_no_mask=ms_no_mask, body_ms=body_ms,
+                body_graph_ms=body_graph_ms,
+                bound_share={k: bnd['bound_ms'] / v
+                             for k, v in body_ms.items()},
+                bound_share_graph={k: bnd['bound_ms'] / v
+                                   for k, v in body_graph_ms.items()},
+                plain_ms=plain_ms,
                 library='F.scaled_dot_product_attention, prebuilt bf16 '
                 '(W, heads, N, N) mask', library_ms=library_ms,
                 library_vs_plain_max_abs=lib_err, **bnd,
@@ -1008,6 +1190,7 @@ def eval_unfused(dev, smi, iters=10):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = read_launches()
+    bodies = dict(wa.window_attention.body_launches)
     peak = torch.cuda.max_memory_allocated()
 
     def plain_op(qkv, bias, mask, *, heads):
@@ -1057,6 +1240,7 @@ def eval_unfused(dev, smi, iters=10):
         max_memory_allocated=peak, attention_layers=n_attn,
         launches=launches,
         launches_per_forward={k: v / iters for k, v in launches.items()},
+        wmsa_body_launches=bodies,
         pred_shape=list(pred.shape),
         pred_is_uint8_valued=bool((pred == pred.round()).all()
                                   and pred.min() >= 0 and pred.max() <= 255),
@@ -1069,6 +1253,7 @@ def eval_unfused(dev, smi, iters=10):
         kernel_as_close_as_plain=close, metrics=metrics,
         metrics_card_vs_cpu_ok=metrics_ok, nvidia_smi=smi)
     ok = (n_attn == 36 and launches['wmsa'] == n_attn * iters
+          and bodies['mma'] == n_attn * iters
           and all(v == 0 for k, v in launches.items() if k != 'wmsa')
           and rec['pred_shape'] == [BATCH, 1, LR * SCALE, LR * SCALE]
           and rec['pred_is_uint8_valued'] and finite and close
@@ -1365,7 +1550,7 @@ def main() -> int:
             # no single PyTorch call computes a block pair or its backward
             'library_ms': None})
     bf16_wmsa = [c for c in wmsa_checks if c.get('dtype') == 'bf16'
-                 and c['case'].startswith('eval')]
+                 and c['case'].startswith('eval') and c['picked']]
     kernels.append({
         'name': 'window_attention', 'route': 'cuda',
         'source': f'{src}/window_attention.cu',

@@ -207,7 +207,10 @@ class WindowAttention(nn.Module):
         bias = self.rel_pos_bias[idx].reshape(n, n, nh).permute(2, 0, 1)
         qkv = self.qkv(x)
         if self.use_pallas:
-            out = self.attn_op(qkv, bias.to(qkv.dtype), mask, heads=nh)
+            # contiguous in the one cast: K6 reads the bias as it lies
+            out = self.attn_op(qkv, bias.to(
+                qkv.dtype, memory_format=torch.contiguous_format), mask,
+                heads=nh)
             return self.proj(out)
         q, k, v = qkv.reshape(bnw, n, 3, nh, hd).permute(2, 0, 3, 1, 4)
         attn = _mm(q * _const(hd ** -0.5, q.dtype), k.transpose(-1, -2))

@@ -17,6 +17,14 @@ dtype, as JAX does); mask (nW, N, N) additive or None, window w taking
 mask[w % nW] (windows are image-major, so this is JAX's tiling of the
 mask over the batch, and nW = W is the untiled case). Returns (W, N, C)
 in qkv's dtype.
+
+The CUDA source has two bodies, and `_k6_body` alone picks one, by dtype
+and shape: 'mma' (bf16 qkv, even hd, a window block within its
+shared-memory budget: one CTA per window, tensor-core products with the
+probabilities split into bf16 hi + lo) and 'fma' (f32, and the bf16
+shapes the mma body does not take: one CTA per window and head, f32 FMA
+products). Both compute the function above; the mma body reads a bf16
+bias as it is handed.
 """
 import ctypes
 import functools
@@ -27,6 +35,31 @@ from srcaco2_tpu_torch.ops.swin_block import _bind, _launch
 
 MAX_N = 64      # tokens per window the CUDA kernel takes (ws <= 8)
 MAX_HD = 64     # head width the CUDA kernel takes
+MMA_SMEM_MAX = 232448   # shared memory a CTA may opt in to on sm_90
+
+
+def _mma_smem_bytes(c: int) -> int:
+    """Shared memory of the mma body per CTA (csrc mma_layout): the
+    window's qkv block and the output tile, MAX_N rows each in bf16, and
+    the window's mask, MAX_N rows of MAX_N + 8 f32."""
+    align16 = lambda v: (v + 15) // 16 * 16
+    return (align16(2 * MAX_N * 3 * c) + align16(2 * MAX_N * c)
+            + 4 * MAX_N * (MAX_N + 8))
+
+
+def _k6_body(dtype, n: int, c: int, heads: int) -> str:
+    """The CUDA body that computes K6 for qkv of this dtype and shape:
+    'mma' where the mma body takes it, else 'fma'. A copy of the
+    library's rule (csrc mma_takes, exported as
+    window_attention_mma_smem), so that the choice needs no build on the
+    CPU; chip_smoke.py's kernel_check_wmsa holds the two against each
+    other on the card."""
+    hd = c // heads
+    if (dtype == torch.bfloat16 and 0 < n <= MAX_N and c % heads == 0
+            and 0 < hd <= MAX_HD and hd % 2 == 0
+            and _mma_smem_bytes(c) <= MMA_SMEM_MAX):
+        return 'mma'
+    return 'fma'
 
 
 def _window_mask(mask: torch.Tensor, w: int) -> torch.Tensor:
@@ -52,14 +85,32 @@ def window_attention_ref(qkv: torch.Tensor, bias: torch.Tensor,
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel():
-    # (compute_bf16, qkv, bias, mask, out, W, N, C, heads, nW, scale,
-    #  stream)
-    fn, err_name = _bind('window_attention', 'window_attention_fwd',
-                         [ctypes.c_int] + [ctypes.c_void_p] * 4
-                         + [ctypes.c_int] * 5 + [ctypes.c_float,
-                                                 ctypes.c_void_p])
-    return fn, err_name
+def _kernel(body: str):
+    """The C entry of one body and the library's error-name function."""
+    if body == 'fma':
+        # (compute_bf16, qkv, bias, mask, out, W, N, C, heads, nW, scale,
+        #  stream)
+        args = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+    else:
+        # (qkv, bias, bias_bf16, mask, out, W, N, C, heads, nW, scale,
+        #  stream)
+        args = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
+                + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5)
+    entry = {'fma': 'window_attention_fwd',
+             'mma': 'window_attention_mma_fwd'}[body]
+    return _bind('window_attention', entry,
+                 args + [ctypes.c_float, ctypes.c_void_p])
+
+
+def _k6_operands(bias, mask, body: str):
+    """(bias, mask) as the body reads them: the mma body takes a bf16 or
+    f32 bias as it is (made contiguous if it is not), the fma body an f32
+    one; the mask is f32."""
+    if body == 'mma' and bias.dtype in (torch.bfloat16, torch.float32):
+        bias = bias.contiguous()
+    else:
+        bias = bias.float().contiguous()
+    return bias, None if mask is None else mask.float().contiguous()
 
 
 def _check(qkv, bias, mask, heads):
@@ -99,19 +150,33 @@ def window_attention(qkv: torch.Tensor, bias: torch.Tensor, mask=None, *,
         raise ValueError(f'unsupported device {qkv.device}')
     _check(qkv, bias, mask, heads)
     w, n, c3 = qkv.shape
+    return _run(_k6_body(qkv.dtype, n, c3 // 3, heads), qkv, bias, mask,
+                heads)
+
+
+def _run(body: str, qkv, bias, mask, heads: int) -> torch.Tensor:
+    """One launch of `body` on checked CUDA inputs; counts it."""
+    w, n, c3 = qkv.shape
     c = c3 // 3
-    bias32 = bias.float().contiguous()
-    mask32 = None if mask is None else mask.float().contiguous()
+    bias, mask = _k6_operands(bias, mask, body)
     out = torch.empty((w, n, c), dtype=qkv.dtype, device=qkv.device)
-    fn, err_name = _kernel()
-    _launch(fn, err_name, 'window_attention',
-            (int(qkv.dtype == torch.bfloat16), qkv.data_ptr(),
-             bias32.data_ptr(), None if mask32 is None else mask32.data_ptr(),
-             out.data_ptr(), w, n, c, heads,
-             0 if mask32 is None else mask32.shape[0],
-             (c // heads) ** -0.5), qkv.device)
+    fn, err_name = _kernel(body)
+    mask_ptr = None if mask is None else mask.data_ptr()
+    n_mask = 0 if mask is None else mask.shape[0]
+    if body == 'fma':
+        args = (int(qkv.dtype == torch.bfloat16), qkv.data_ptr(),
+                bias.data_ptr(), mask_ptr)
+    else:
+        args = (qkv.data_ptr(), bias.data_ptr(),
+                int(bias.dtype == torch.bfloat16), mask_ptr)
+    _launch(fn, err_name, f'window_attention ({body} body)',
+            args + (out.data_ptr(), w, n, c, heads, n_mask,
+                    (c // heads) ** -0.5), qkv.device)
     window_attention.launches += 1
+    window_attention.body_launches[body] += 1
     return out
 
 
 window_attention.launches = 0
+# launches by body ('mma', 'fma'); window_attention.launches is their sum
+window_attention.body_launches = {'mma': 0, 'fma': 0}

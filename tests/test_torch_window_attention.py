@@ -13,6 +13,8 @@ the rounding of a residual add that feeds a LayerNorm, and of the exps
 that feed a softmax's sum)."""
 import contextlib
 import functools
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import jax
@@ -127,6 +129,156 @@ def test_k6_wrapper_runs_plain_on_cpu_and_launches_or_raises_elsewhere():
     with torch.no_grad(), pytest.raises(ValueError, match='device'):
         twa.window_attention(meta, bm, None, heads=heads)
     assert twa.window_attention.launches == before
+
+
+def _mma_body_emulation(qkv, bias, mask, heads, lo=True, s_bf16=False):
+    """The mma body's arithmetic on the CPU, for bf16 qkv and bias:
+    q.k^T in f32 from exact products (bf16 x bf16 fits f32), then the
+    f32 scale, the bias and the mask; the f32 softmax; P split into bf16
+    P_hi and P_lo = bf16(P - P_hi); both P.v passes summed in f32.
+    Returns (the f32 result before rounding, the bf16 output), (W, N, C).
+    With lo=False the P_lo pass is left out, with s_bf16 the scaled
+    scores are rounded to bf16: arithmetic that keeps less precision.
+    """
+    w, n, c3 = qkv.shape
+    c = c3 // 3
+    hd = c // heads
+    t = qkv.float().reshape(w, n, 3, heads, hd).permute(2, 0, 3, 1, 4)
+    q, k, v = t[0], t[1], t[2]
+    s = (q @ k.transpose(-1, -2)) * torch.tensor(hd ** -0.5)
+    if s_bf16:
+        s = s.bfloat16().float()
+    s = s + bias.float()[None]
+    if mask is not None:
+        s = s + twa._window_mask(mask, w)[:, None]
+    p = torch.softmax(s, dim=-1)
+    p_hi = p.bfloat16().float()
+    p_lo = (p - p_hi).bfloat16().float()
+    o = p_hi @ v + p_lo @ v if lo else p_hi @ v
+    o = o.permute(0, 2, 1, 3).reshape(w, n, c)
+    return o, o.bfloat16()
+
+
+def _check_mma_emulation(qkv, bias, mask, heads, jmask):
+    """The emulation against window_attention_ref and _wmsa_kernel in
+    interpret mode (bf16, one output ulp), and its f32 result against
+    window_attention_ref in f32 on the same values: within 2^-15 of the
+    largest |v| of each output column's head and window (the hi/lo split
+    keeps P to ~2^-17 of itself)."""
+    q16, b16 = (torch.from_numpy(a).bfloat16() for a in (qkv, bias))
+    tmask = None if mask is None else torch.from_numpy(mask)
+    o32, out = _mma_body_emulation(q16, b16, tmask, heads)
+    ref = twa.window_attention_ref(q16, b16, tmask, heads)
+    np.testing.assert_allclose(out.float().numpy(), ref.float().numpy(),
+                               **BF16_ULP)
+    want = np.asarray(jwa.window_attention_pallas(
+        jnp.asarray(qkv, jnp.bfloat16), jnp.asarray(bias, jnp.bfloat16),
+        None if jmask is None else jnp.asarray(jmask, jnp.bfloat16),
+        heads=heads, block_windows=8, interpret=True), np.float32)
+    np.testing.assert_allclose(out.float().numpy(), want, **BF16_ULP)
+    ref32 = twa.window_attention_ref(q16.float(), b16.float(), tmask, heads)
+    w, n, c3 = qkv.shape
+    hd = c3 // 3 // heads
+    v = q16.float().reshape(w, n, 3, heads, hd)[:, :, 2]
+    vmax = v.abs().amax(dim=1).reshape(w, 1, heads * hd)
+    assert bool(((o32 - ref32).abs() <= 2.0 ** -15 * vmax).all()), float(
+        ((o32 - ref32).abs() / vmax).max())
+
+
+@pytest.mark.parametrize('mask_kind', ['none', 'full', 'tiled'])
+def test_mma_body_emulation_matches_plain_and_jax_k6(mask_kind):
+    """The mma body's arithmetic (_mma_body_emulation) on _k6_inputs in
+    bf16, each mask kind."""
+    qkv, bias, mask, heads = _k6_inputs('bf16', mask_kind)
+    jmask = None if mask is None else np.tile(
+        mask, (qkv.shape[0] // mask.shape[0], 1, 1))
+    _check_mma_emulation(qkv, bias, mask, heads, jmask)
+
+
+def _flagship_k6_inputs():
+    """K6's bf16 inputs at the flagship widths: C=180, 6 heads (hd 30),
+    the 64 windows of one 64x64 image with the shift-4 mask (numpy
+    f32 holding bf16 values)."""
+    r = np.random.default_rng(5)
+    rnd = lambda a: np.asarray(jnp.asarray(a, jnp.bfloat16), np.float32)
+    qkv = rnd(r.normal(0, 1, (64, 64, 3 * 180)))
+    bias = rnd(r.normal(0, 1, (6, 64, 64)))
+    mask = j_shift_mask(64, 64, 8, 4).astype(np.float32)
+    assert mask.shape == (64, 64, 64) and (mask != 0).any()
+    return qkv, bias, mask
+
+
+def test_mma_body_emulation_at_flagship_widths():
+    """C=180, 6 heads (hd 30), the 64 windows of one 64x64 image with
+    the shift-4 mask, bf16."""
+    qkv, bias, mask = _flagship_k6_inputs()
+    _check_mma_emulation(qkv, bias, mask, 6, mask)
+
+
+@pytest.mark.parametrize('arith', ['mma_body', 'no_p_lo', 'scores_bf16'])
+def test_k6_precision_gate(arith):
+    """chip_smoke.py's wmsa_precision, the gate that holds K6's bf16
+    outputs on the card beside WMSA_TOL: it passes the mma body's
+    arithmetic (_mma_body_emulation) at the flagship widths, and
+    refuses the same arithmetic without the P_lo pass or with the
+    scores rounded to bf16, which WMSA_TOL alone passes."""
+    spec = importlib.util.spec_from_file_location(
+        'chip_smoke', Path(__file__).resolve().parents[1] / 'chip_smoke.py')
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    qkv, bias, mask = (torch.from_numpy(a) for a in _flagship_k6_inputs())
+    q16, b16 = qkv.bfloat16(), bias.bfloat16()
+    ref = twa.window_attention_ref(q16, b16, mask, 6)
+    _, out = _mma_body_emulation(q16, b16, mask, 6,
+                                 lo=arith != 'no_p_lo',
+                                 s_bf16=arith == 'scores_bf16')
+    tol = cs.WMSA_TOL['bf16']
+    np.testing.assert_allclose(out.float().numpy(), ref.float().numpy(),
+                               atol=tol['atol'], rtol=tol['rtol'])
+    got = cs.wmsa_precision(out, ref, q16)
+    assert got['ulp_ok'] == (arith == 'mma_body'), got
+    if arith == 'mma_body':
+        assert got['share_differ_vs_plain'] < 0.2 * cs.WMSA_DIFFER_MAX, got
+
+
+def test_k6_body_choice_and_operands():
+    """_k6_body: the mma body for the flagship's bf16 shape (and 7x7
+    windows, and hd 64), the fma body for f32, an odd head width and a
+    window block over the mma body's shared-memory budget; the mma body
+    gets a bf16 bias as it is handed, the fma body an f32 copy; the
+    unfused SwinIR hands the bias over contiguous in the compute
+    dtype."""
+    bf, f32 = torch.bfloat16, torch.float32
+    assert twa._mma_smem_bytes(180) == 110592
+    assert twa._k6_body(bf, 64, 180, 6) == 'mma'
+    assert twa._k6_body(bf, 49, 180, 6) == 'mma'
+    assert twa._k6_body(bf, 64, 256, 4) == 'mma'
+    assert twa._k6_body(f32, 64, 180, 6) == 'fma'
+    assert twa._k6_body(bf, 64, 45, 3) == 'fma'          # hd 15
+    assert twa._mma_smem_bytes(512) > twa.MMA_SMEM_MAX
+    assert twa._k6_body(bf, 64, 512, 8) == 'fma'
+    b16 = torch.randn(6, 64, 64).bfloat16()
+    m = torch.zeros(4, 64, 64)
+    got_b, got_m = twa._k6_operands(b16, m, 'mma')
+    assert got_b is b16 and got_m is m
+    got_b, _ = twa._k6_operands(b16, None, 'fma')
+    assert got_b.dtype == f32 and torch.equal(got_b, b16.float())
+    seen = []
+
+    def spy(qkv, bias, mask, *, heads):
+        seen.append((bias.dtype, bias.is_contiguous()))
+        return twa.window_attention_ref(qkv, bias, mask, heads)
+
+    tm = TSwinIR(**_TINY, depths=(2,), num_heads=(2,), fused_blocks=False,
+                 use_pallas_attn=True, dtype=bf, device='cpu')
+    for mod in tm.modules():
+        if hasattr(mod, 'attn_op'):
+            mod.attn_op = spy
+    launches = dict(twa.window_attention.body_launches)
+    with torch.no_grad():
+        tm.eval()(torch.rand(1, 1, 8, 8))
+    assert seen == [(bf, True)] * 2
+    assert twa.window_attention.body_launches == launches
 
 
 # ------------------------------------------------------ unfused SwinIR
