@@ -79,6 +79,28 @@ non-zero:
                 launch counts (18 K3, 18 K4, 0 K1, K2 or K5 per step),
                 ms/step, patches/s, peak memory, loss, flags
   train_pair_profile  device time of one pair step by kernel
+  windowed_check  the default x2 SwinIR (full width, pixelshuffle) through
+                FusedBlockStack's windowed path: one training step's loss
+                and grads at batch 8 on 48x48 LR patches on the card
+                against the CPU (f32 with TF32 off: 1e-5 / 1e-4; bf16:
+                1e-2 / 3e-2, a grad whose bf16 noise floor is above 1.5e-2
+                held to that floor, see windowed_check), and an f32 eval
+                forward at 40x40 LR; no kernel launches on these paths
+  windowed_profile  that config's train step (f32, batch 8 of 48x48 LR)
+                in this process: ms/step over 5 steps, peak memory, no
+                kernel launch, the device time of one step by kernel
+  entry_x8      `python -m srcaco2_tpu_torch.main` with the README's flags
+                (x8, batch 64, amp, pixelshuffledirect, l2 + 5 SSIM(19),
+                ROI eval and selection) on a synthetic dataset (128 / 8 /
+                8 images of 512^2, 3 epochs: 6 steps), then `python -m
+                srcaco2_tpu_torch.eval`; gates: exit codes, passed.txt,
+                checkpoint step, best model, tracker rows, eval equal to
+                the final test, 36 K1 + 36 K2 per step and 36 K5 per
+                validation / test forward (run_stats.json), nothing else
+  entry_x2      the same at the defaults (x2, h_size 96: the windowed path
+                in training, no K1 / K2; f32; batch 8; 32 / 4 / 4 images,
+                2 epochs: 8 steps; K5 in f32 on 256x256 LR validation);
+                ms per step, patches/s and peak memory
   kernels       the kernels line (K1-K6, one JSON object)
 followed by the nvidia-smi line and, last, the {"ok": true, ...} line.
 Imports nothing of JAX or of the JAX package.
@@ -790,13 +812,8 @@ def block_stacks(model, pair=None):
 
 def kernel_wrappers():
     """{short name: wrapper} of every kernel, K1-K6."""
-    from srcaco2_tpu_torch.ops import swin_block as sb
-    from srcaco2_tpu_torch.ops import window_attention as wa
-    return dict(fwd=sb.swin_block_fwd, bwd=sb.swin_block_bwd,
-                pair_fwd=sb.swin_block_pair_fwd,
-                pair_bwd=sb.swin_block_pair_bwd,
-                grouped=sb.fused_swin_block_grouped,
-                wmsa=wa.window_attention)
+    from srcaco2_tpu_torch.ops.launches import kernel_wrappers
+    return kernel_wrappers()
 
 
 def reset_launches():
@@ -808,7 +825,8 @@ def reset_launches():
 
 
 def read_launches():
-    return {k: fn.launches for k, fn in kernel_wrappers().items()}
+    from srcaco2_tpu_torch.ops.launches import launch_counts
+    return launch_counts()
 
 
 def train_phase(ctx, smi, steps=10, pair=False):
@@ -1261,6 +1279,368 @@ def eval_unfused(dev, smi, iters=10):
     return rec, ok, (fwd, batch)
 
 
+def default_x2_args(amp):
+    """The default SwinIR of config/defaults.py at full width: x2, C=180,
+    6 x 6 blocks of 6 heads, window 8, pixelshuffle, h_size 96 (48x48 LR
+    patches), one channel as the entry runs' data; l2 + 5 neg-SSIM(19)."""
+    from srcaco2_tpu_torch.config.defaults import get_config
+    args = get_config()
+    args.update(n_channels=1, amp=amp, l2=True, ssim=True, ssim_lambda=5.0,
+                ssim_window_s=19)
+    args['netG']['swinir_in_chans'] = 1
+    return args
+
+
+def windowed_check(dev):
+    """The windowed path of FusedBlockStack on the card (48x48 LR
+    training patches, T = 2304 > 256; an eval forward at 40x40 LR, a
+    multiple of 8 and not of 16) against the same on the CPU: one
+    training step's loss and grads at batch 8 from the same weights and
+    the same batch (its draws made on the card, the batch copied to the
+    CPU), f32 with TF32 off and bf16 (amp); no kernel may launch on
+    these paths.
+
+    f32: loss within 1e-5 relative, every grad within 1e-4 relative L2.
+    bf16: loss within 1e-2, every grad within 3e-2, except a grad over
+    3e-2 whose bf16 noise floor is above 1.5e-2 (`floor`: the CPU's bf16
+    grad against its f32 grad of the same weights and batch; the
+    relative position bias tables, ~6%, whose grads cancel over each
+    softmax row and reach them through bf16 autograd): that one within
+    2 x floor of the CPU's, and the card's bf16 grad no further from the
+    card's f32 grad than 1.25 x floor + 1e-3 (`floored` lists them)."""
+    import torch
+    from srcaco2_tpu_torch.data import pipeline as P
+    from srcaco2_tpu_torch.losses.master import build_loss
+    from srcaco2_tpu_torch.models.registry import define_g
+    from srcaco2_tpu_torch.train.steps import loss_and_grads
+    from srcaco2_tpu_torch.utils import reproducibility as R
+    b, h_size, n_img = 8, 96, 16
+    gen = torch.Generator(device=dev).manual_seed(1)
+    hr = torch.randint(0, 256, (n_img, 192, 192, 1), generator=gen,
+                       device=dev, dtype=torch.uint8)
+    lr = torch.randint(0, 256, (n_img, 96, 96, 1), generator=gen,
+                       device=dev, dtype=torch.uint8)
+    cfg = P.PipeConfig(scale=2, h_size=h_size)
+    idxs = torch.arange(b, device=dev)
+    batch = P.assemble(hr, lr, idxs, P.draw(R.step_generator(0, 0, dev), b,
+                                            cfg, (192, 192)), cfg)
+    batch_cpu = {k: v.cpu() for k, v in batch.items()}
+    allow = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    runs = {}
+    for name, amp in (('f32', False), ('bf16', True)):
+        args = default_x2_args(amp)
+        master = build_loss(args)
+        for d in (dev, torch.device('cpu')):
+            model = define_g(args, d, seed=0).train()
+            params = dict(model.named_parameters())
+            bt = batch if d.type == 'cuda' else batch_cpu
+            reset_launches()
+            if d.type == 'cuda':
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            loss, _, _, grads = loss_and_grads(model, master, 'SwinIR',
+                                               params, bt, 0, 1.0)
+            if d.type == 'cuda':
+                torch.cuda.synchronize()
+            runs[name, d.type] = dict(
+                loss=float(loss), grads={k: g.cpu() for k, g in grads.items()},
+                seconds=time.perf_counter() - t0,
+                launches=read_launches(),
+                peak=(torch.cuda.max_memory_allocated() if d.type == 'cuda'
+                      else None))
+            del model, params, grads
+    out, ok = {}, True
+    for name in ('f32', 'bf16'):
+        c, r = runs[name, 'cuda'], runs[name, 'cpu']
+        rel = {k: _rel_l2(c['grads'][k], r['grads'][k]) for k in c['grads']}
+        worst = max(rel, key=rel.get)
+        if name == 'f32':
+            tol = dict(loss_rtol=1e-5, grad_rel_l2=1e-4)
+            grads_ok, floored = rel[worst] <= 1e-4, {}
+        else:
+            tol = dict(loss_rtol=1e-2, grad_rel_l2=3e-2, floor_above=1.5e-2)
+            ref_c = runs['f32', 'cuda']['grads']
+            ref_r = runs['f32', 'cpu']['grads']
+            floored, grads_ok = {}, True
+            for k, e in rel.items():
+                if e <= tol['grad_rel_l2']:
+                    continue
+                floor = _rel_l2(r['grads'][k], ref_r[k])
+                card = _rel_l2(c['grads'][k], ref_c[k])
+                floored[k] = dict(card_vs_cpu=e, cpu_bf16_vs_f32=floor,
+                                  card_bf16_vs_f32=card)
+                grads_ok = (grads_ok and floor > tol['floor_above']
+                            and e <= 2 * floor
+                            and card <= 1.25 * floor + 1e-3)
+        rec = dict(loss_card=c['loss'], loss_cpu=r['loss'],
+                   loss_rel=abs(c['loss'] - r['loss']) / abs(r['loss']),
+                   grad_rel_l2_max=rel[worst], worst_param=worst,
+                   grad_rel_l2_max_unfloored=max(
+                       (v for k, v in rel.items() if k not in floored),
+                       default=0.0),
+                   floored=floored, n_grads=len(rel),
+                   grads_finite=all(bool(torch.isfinite(g).all())
+                                    for g in c['grads'].values()),
+                   card_seconds=c['seconds'], cpu_seconds=r['seconds'],
+                   card_max_memory_allocated=c['peak'],
+                   launches=c['launches'], **tol)
+        rec['ok'] = (rec['loss_rel'] <= tol['loss_rtol'] and grads_ok
+                     and rec['grads_finite']
+                     and all(v == 0 for v in c['launches'].values()))
+        out[f'train_{name}'] = rec
+        ok = ok and rec['ok']
+    del runs
+    # an f32 evaluation forward at 40x40 LR
+    args = default_x2_args(False)
+    x = torch.rand((2, 1, 40, 40), generator=torch.Generator().manual_seed(2))
+    ys = {}
+    reset_launches()
+    for d in (dev, torch.device('cpu')):
+        model = define_g(args, d, seed=0)
+        with torch.inference_mode():
+            ys[d.type] = model(x.to(d)).cpu()
+        del model
+    launches = read_launches()
+    err = float((ys['cuda'] - ys['cpu']).abs().max())
+    out['eval_f32_40x40'] = dict(
+        shape=list(ys['cuda'].shape), max_abs_diff=err, atol=2e-4,
+        launches=launches,
+        ok=(err <= 2e-4 and list(ys['cuda'].shape) == [2, 1, 80, 80]
+            and bool(torch.isfinite(ys['cuda']).all())
+            and all(v == 0 for v in launches.values())))
+    ok = ok and out['eval_f32_40x40']['ok']
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = \
+        allow
+    return out, ok
+
+
+def windowed_profile(dev, smi, steps=5):
+    """The default x2 train step (f32 with TF32 off, batch 8 of 48x48 LR
+    patches: the windowed path, l2 + 5 neg-SSIM, Adam) in this process:
+    one warm-up step, `steps` timed steps (host clock, synchronised),
+    then the device time of one step by kernel and the device's busy
+    share (profile_device)."""
+    import torch
+    from srcaco2_tpu_torch.data import pipeline as P
+    from srcaco2_tpu_torch.losses.master import build_loss
+    from srcaco2_tpu_torch.models.registry import define_g
+    from srcaco2_tpu_torch.train.schedule import build_optimizer
+    from srcaco2_tpu_torch.train.state import TrainState
+    from srcaco2_tpu_torch.train.steps import make_train_step
+    allow = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    args = default_x2_args(False)
+    model = define_g(args, dev, seed=0).train()
+    tx = build_optimizer(args['train'])
+    state = TrainState.create(dict(model.named_parameters()), tx)
+    cfg = P.PipeConfig(scale=2, h_size=96)
+    step = make_train_step(model, build_loss(args), tx, 'SwinIR', cfg,
+                           steps_per_epoch=1000)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    hr = torch.randint(0, 256, (32, 512, 512, 1), generator=gen, device=dev,
+                       dtype=torch.uint8)
+    lr = torch.randint(0, 256, (32, 256, 256, 1), generator=gen, device=dev,
+                       dtype=torch.uint8)
+
+    def inputs():
+        idxs = torch.randint(0, 32, (8,), generator=gen, device=dev)
+        return idxs, P.draw(gen, 8, cfg, (512, 512))
+    state, _, _ = step(state, hr, lr, *inputs())
+    batches = [inputs() for _ in range(steps)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    for b in batches:
+        state, holder, ok = step(state, hr, lr, *b)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / steps
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    b = inputs()
+    prof = profile_device(lambda: step(state, hr, lr, *b), ms)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = \
+        allow
+    rec = dict(model='SwinIR x2 pixelshuffle C=180 6x6 heads 6 ws 8 '
+               '(config/defaults.py), f32, random weights (seed 0)',
+               batch=8, lr_patch=[48, 48], steps=steps, ms_per_step=ms,
+               patches_per_s=8e3 / ms, max_memory_allocated=peak,
+               loss=float(holder['total']), launches=launches, **prof,
+               nvidia_smi=smi)
+    ok = (bool(torch.isfinite(holder['total'])) and bool(ok)
+          and all(v == 0 for v in launches.values()))
+    return rec, ok
+
+
+# the README's training command (README.md:91-100) with only the dataset
+# names, the roots and the epochs changed, and the x2 default run
+ENTRY = {
+    'entry_x8': dict(
+        scale=8, n_train=128, n_val=8, n_test=8, epochs=3, steps=6,
+        flags=['--h_size', '128', '--l2', 'True', '--ssim', 'True',
+               '--ssim_lambda', '5.', '--ssim_window_s', '19',
+               '--eval_over_roi_also', 'True',
+               '--eval_over_roi_also_model_select', 'True',
+               '--swinir_upsampler', 'pixelshuffledirect', '--amp', 'True',
+               '--batch_size', '64']),
+    'entry_x2': dict(
+        scale=2, n_train=32, n_val=4, n_test=4, epochs=2, steps=8,
+        flags=['--h_size', '96', '--l2', 'True', '--ssim', 'True',
+               '--ssim_lambda', '5.', '--ssim_window_s', '19',
+               '--eval_over_roi_also', 'True',
+               '--eval_over_roi_also_model_select', 'True',
+               '--batch_size', '8']),
+}
+
+
+def _run_entry(cmd, cwd, log, timeout=600):
+    """One entry point in a subprocess of this interpreter, the repo on
+    its path; (return code, seconds). Its output goes to `log`."""
+    env = dict(os.environ,
+               PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    t0 = time.perf_counter()
+    with open(log, 'w') as f:
+        try:
+            rc = subprocess.run([sys.executable, '-m', *cmd], cwd=cwd,
+                                env=env, stdout=f, stderr=subprocess.STDOUT,
+                                timeout=timeout).returncode
+        except subprocess.TimeoutExpired:
+            rc = 124
+    return rc, time.perf_counter() - t0
+
+
+def entry_phase(name, out_dir=None):
+    """Train an experiment with `python -m srcaco2_tpu_torch.main` on a
+    synthetic dataset (the port's make_synthetic_dataset, CELL0, 512^2
+    HR, blobs, one channel, written with the port's own TIFF codec where
+    cv2 is missing), then re-score it with `python -m
+    srcaco2_tpu_torch.eval`. Gates: both exit 0; passed.txt; the last
+    checkpoint at the expected step; best-models/G-model.pt; validation,
+    test and _bicubic test rows in the tracker; eval's test PSNR and SSIM
+    equal to the trainer's final test within 1e-6; the kernel launches
+    of each phase from the run's run_stats.json (x8: 36 K1 and 36 K2 per
+    step; x2: none in training, the windowed path; both: 36 K5 per
+    validation / test forward and no other kernel)."""
+    import pickle
+    import shutil
+    import tempfile
+    from srcaco2_tpu_torch.data.synthetic import make_synthetic_dataset
+    from srcaco2_tpu_torch.train import checkpoint as CKPT
+    cfg = ENTRY[name]
+    t_all = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix=f'{name}_') as tmp:
+        t0 = time.perf_counter()
+        names = make_synthetic_dataset(
+            os.path.join(tmp, 'data'), scale=cfg['scale'], cell='CELL0',
+            n_train=cfg['n_train'], n_val=cfg['n_val'], n_test=cfg['n_test'],
+            size=512, seed=0, style='blobs')
+        data_s = time.perf_counter() - t0
+        data = os.path.join(tmp, 'data')
+        rc_train, train_s = _run_entry(
+            ['srcaco2_tpu_torch.main', '--net_type', 'SwinIR', '--scale',
+             str(cfg['scale']), '--n_channels', '1',
+             '--train_dsets', names[0], '--valid_dsets', names[1],
+             '--test_dsets', names[2], '--data_root', data,
+             '--splits_root', data, *cfg['flags'],
+             '--max_epochs', str(cfg['epochs']),
+             '--checkpoint_eval', '1.0', '--checkpoint_save', '1.0'],
+            tmp, os.path.join(tmp, 'main.log'))
+        done = [os.path.join(d, 'passed.txt') for d, _, f in
+                os.walk(os.path.join(tmp, 'exps')) if 'passed.txt' in f]
+        exp = os.path.dirname(done[0]) if done else None
+        rc_eval, eval_s = (_run_entry(
+            ['srcaco2_tpu_torch.eval', '--exp_path', exp], tmp,
+            os.path.join(tmp, 'eval.log')) if exp else (None, 0.0))
+        rec = dict(dataset=dict(names=names, seconds=data_s,
+                                n=[cfg['n_train'], cfg['n_val'],
+                                   cfg['n_test']]),
+                   main_rc=rc_train, main_seconds=train_s, eval_rc=rc_eval,
+                   eval_seconds=eval_s, passed_txt=bool(done))
+        if out_dir:
+            dst = os.path.join(out_dir, name)
+            os.makedirs(dst, exist_ok=True)
+            for f in [os.path.join(tmp, 'main.log'),
+                      os.path.join(tmp, 'eval.log')] + (
+                          [os.path.join(exp, 'run_stats.json')] if exp
+                          else []):
+                if os.path.isfile(f):
+                    shutil.copy(f, dst)
+        ok = rc_train == 0 and rc_eval == 0 and bool(done)
+        if ok:
+            rec['last_checkpoint'] = CKPT.find_last_checkpoint(exp)
+            rec['best_model'] = os.path.isfile(
+                os.path.join(exp, 'best-models', 'G-model.pt'))
+            with open(os.path.join(exp, 'tracker.pkl'), 'rb') as f:
+                tracker = pickle.load(f)
+            with open(os.path.join(exp, 'eval_test_test', 'tracker.pkl'),
+                      'rb') as f:
+                ev = pickle.load(f)
+            with open(os.path.join(exp, 'run_stats.json')) as f:
+                stats = json.load(f)
+            with open(os.path.join(exp, 'eval_test_test',
+                                   'run_stats.json')) as f:
+                ev_stats = json.load(f)
+            val = tracker['val'][names[1]]['psnr']['vals']
+            test = {ds: {m: tracker['test'][ds][m]['vals'][-1:]
+                         for m in ('psnr', 'ssim')}
+                    for ds in (names[2], names[2] + '_bicubic')}
+            rescored = {ds: {m: ev['test'][ds][m]['vals'][-1:]
+                             for m in ('psnr', 'ssim')} for ds in test}
+            same = all(len(test[ds][m]) == len(rescored[ds][m]) == 1
+                       and abs(test[ds][m][0] - rescored[ds][m][0]) <= 1e-6
+                       for ds in test for m in ('psnr', 'ssim'))
+            steps = stats['train_steps']
+            lt, lv = stats['launches']['train'], stats['launches']['val']
+            lts = stats['launches']['test']
+            fv = stats['model_forwards']['val']
+            ft = stats['model_forwards']['test']
+            blocks = 36
+            k12 = blocks * steps if cfg['scale'] == 8 else 0
+            launches_ok = (
+                lt['fwd'] == k12 and lt['bwd'] == k12
+                and all(lt[k] == 0 for k in lt if k not in ('fwd', 'bwd'))
+                and lv['grouped'] == blocks * fv
+                and all(lv[k] == 0 for k in lv if k != 'grouped')
+                and lts['grouped'] == blocks * ft
+                and all(lts[k] == 0 for k in lts if k != 'grouped')
+                and ev_stats['launches']['test']['grouped']
+                == blocks * ev_stats['model_forwards']['test'])
+            windows = stats['train_windows']
+            later = windows[1:]
+            later_steps = sum(w['steps'] for w in later)
+            later_s = sum(w['seconds'] for w in later)
+            bs = int(cfg['flags'][cfg['flags'].index('--batch_size') + 1])
+            rec.update(
+                val_rows=len(val), test_rows=test, rescored=rescored,
+                eval_equals_final_test=same, train_steps=steps,
+                model_forwards=stats['model_forwards'],
+                launches=stats['launches'],
+                eval_launches=ev_stats['launches'],
+                launches_ok=launches_ok, train_windows=windows,
+                # host clock from a chunk's dispatch to its flag read
+                # (synchronising); the first window holds the first step
+                s_per_step=sum(w['seconds'] for w in windows) / steps,
+                ms_per_step_after_first_window=(
+                    1e3 * later_s / later_steps if later_steps else None),
+                patches_per_s_after_first_window=(
+                    bs * later_steps / later_s if later_s else None),
+                train_max_memory_allocated=max(
+                    w.get('max_memory_allocated') or 0 for w in windows))
+            ok = (rec['last_checkpoint'] == cfg['steps'] and rec['best_model']
+                  and steps == cfg['steps'] and len(val) >= cfg['epochs']
+                  and all(test[ds]['psnr'] for ds in test) and same
+                  and launches_ok)
+        rec['wall_seconds'] = time.perf_counter() - t_all
+        rec['ok'] = ok
+        return rec, ok
+
+
 def flagship_args():
     from srcaco2_tpu_torch.config.net_defaults import init_net_g
     args = {'scale': SCALE, 'n_channels': 1, 'h_size': H_SIZE, 'amp': True}
@@ -1510,6 +1890,28 @@ def main() -> int:
         lambda: step(state, ctx['hr'], ctx['lr'], *inputs),
         train_pair['ms_per_step']), nvidia_smi=smi)
 
+    del ctx, step, state, inputs
+    torch.cuda.empty_cache()
+    windowed, ok = windowed_check(dev)
+    windowed = emit('windowed_check', **windowed, nvidia_smi=smi)
+    if not ok:
+        print('chip_smoke: windowed_check failed', file=sys.stderr)
+        return 1
+    torch.cuda.empty_cache()
+    wprof, ok = windowed_profile(dev, smi)
+    wprof = emit('windowed_profile', **wprof)
+    if not ok:
+        print('chip_smoke: windowed_profile failed', file=sys.stderr)
+        return 1
+    torch.cuda.empty_cache()
+    entries = {}
+    for name in ENTRY:
+        rec, ok = entry_phase(name, out_dir)
+        entries[name] = emit(name, **rec, nvidia_smi=smi)
+        if not ok:
+            print(f'chip_smoke: {name} failed', file=sys.stderr)
+            return 1
+
     tpu = 'srcaco2_tpu/ops/pallas/swin_block.py'
     src = 'srcaco2_tpu_torch/ops/csrc'
     bf16_checks = [c for c in train_checks if c['dtype'] == 'bf16']
@@ -1590,6 +1992,8 @@ def main() -> int:
                        'kernel_check_wmsa': wmsa_checks,
                        'kernel_time_wmsa': wmsa_times,
                        'eval_unfused': ev, 'eval_unfused_profile': ev_prof,
+                       'windowed_check': windowed,
+                       'windowed_profile': wprof, **entries,
                        'kernels': kernels}, f, indent=1)
     print(json.dumps({'kernels': kernels}))
     print(smi)

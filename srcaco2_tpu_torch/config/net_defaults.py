@@ -30,4 +30,7 @@ def init_net_g(netG: dict, args: dict) -> dict:
     out[f'{nt}_upsampler'] = constants.US_PIXEL_SHUFFLE
     out[f'{nt}_resi_connection'] = constants.R_CONNECTION_1CONV
     out[f'{nt}_use_fused_blocks'] = True
+    out[f'{nt}_init_type'] = constants.INIT_W_DEFAULT
+    out[f'{nt}_init_bn_type'] = constants.INIT_BN_CONSTANT
+    out[f'{nt}_init_gain'] = 1.
     return out

@@ -1,8 +1,22 @@
 """The registry names the port needs (own copy of srcaco2_tpu/constants.py
 entries; the port imports nothing of the JAX package)."""
 
+# tasks
+SUPER_RES = 'super-resolution'
+RECONSTRUCT = 'reconstruct'
+TASKS = [SUPER_RES, RECONSTRUCT]
+REGRESSION = 'regression'
+
 SWINIR = 'SwinIR'
 SRCNN = 'SRCNN'
+# every net of the JAX zoo (only SwinIR is ported; config/net_defaults.py
+# raises for the others)
+MODELS = [SWINIR, 'DSRSplines', 'CSRCNN', 'DFCAN', SRCNN, 'VDSR', 'MemNet',
+          'DRRN', 'OmniSR', 'GRL', 'ENLCN', 'ACT', 'NLSN', 'EDSR_LIIF',
+          'SRFBN', 'DBPN', 'MSLapSRN', 'ProSR']
+NETTYPE_METHOD = {m: m for m in MODELS}
+INIT_W_DEFAULT = 'init_w_default'
+INIT_BN_CONSTANT = 'init_bn_constant'
 
 # Networks that consume the bicubically pre-upscaled input.
 PRE_UPSAMPLED_INPUT_NETS = [SRCNN]
@@ -22,14 +36,54 @@ NET_TYPE_PYRAMID = 'pyramid'
 
 # patch sampling (only uniform sampling is ported)
 SAMPLE_UNIF = 'uniform'
+SAMPLE_PATCHES = [SAMPLE_UNIF, 'roi', 'edt', 'edt*roi']
 TH_AUTO = 'automatic_threshold'
 TH_FIX = 'fix_threshold'
+
+# phases, splits, datasets
+TRAIN_PHASE = 'train'
+EVAL_PHASE = 'eval'
+TRAINSET = 'train'
+VALIDSET = 'val'
+TESTSET = 'test'
+SPLITS = [TRAINSET, VALIDSET, TESTSET]
+CELL0 = 'CELL0'  # Survivin
+CELL1 = 'CELL1'  # E-cadherin / GFP-tubulin
+CELL2 = 'CELL2'  # mCherry-Histone-H2B
+SCALES = [2, 4, 8]
+CODE_IDENTIFIER = 'CODEXXXXXXXIDENTIFIER'
+_CACO2_FMT = 'caco2_{split}_X_{scale}_in_{inres}_out_512_cell_{cell}'
+
+
+def caco2_name(split: str, scale: int, cell: str) -> str:
+    """Canonical dataset name, e.g.
+    caco2_train_X_8_in_64_out_512_cell_CELL2."""
+    if split not in SPLITS or scale not in SCALES:
+        raise ValueError(f'split {split!r}, scale {scale!r}')
+    return _CACO2_FMT.format(split=split, scale=scale, inres=512 // scale,
+                             cell=cell)
+
+
+def parse_caco2_name(name: str):
+    """Inverse of caco2_name -> (split, scale, cell); biosr_* names
+    follow the same pattern."""
+    parts = name.split('_')
+    if parts[0] not in ('caco2', 'biosr'):
+        raise ValueError(f'not a caco2 / biosr dataset name: {name!r}')
+    return parts[1], int(parts[3]), parts[-1]
+
+
+# interpolation of the bicubic baseline
+INTER_BICUBIC = 'bicubic'
+NORM2 = '2'
 
 # optimizers and schedules
 SGD = 'sgd'
 ADAM = 'adam'
+OPTIMIZERS = [SGD, ADAM]
 MULTISTEPLR = 'MultiStepLR'
 MYSTEPLR = 'MyStepLR'
+STEPSLR = [MULTISTEPLR, MYSTEPLR]
 
 # evaluation metrics (ops/metrics.py, train/evaluator.py)
 PSNR_MTR = 'psnr'
@@ -37,5 +91,13 @@ SSIM_MTR = 'ssim'
 MSE_MTR = 'mse'
 NRMSE_MTR = 'nrmse'
 PSNR_Y_MTR = 'psnr_y'
+SSIM_Y_MTR = 'ssim_y'
+METRICS = [PSNR_MTR, SSIM_MTR, MSE_MTR, NRMSE_MTR, PSNR_Y_MTR, SSIM_Y_MTR]
+# the better of two values of each metric
+BEST_MTR = {PSNR_MTR: max, SSIM_MTR: max, MSE_MTR: min, NRMSE_MTR: min,
+            PSNR_Y_MTR: max, SSIM_Y_MTR: max}
 # ROI thresholds the ROI metrics are marginalized over
 ROI_THRESH = [4, 5, 6, 7, 8, 9, 10]
+
+# the JAX package's process-setup names, kept for its flag surface
+BACKEND_ICI = 'ici'

@@ -26,7 +26,10 @@ def _gauss_band(n: int, ws: int, sigma: float = 1.5) -> np.ndarray:
 
 @functools.lru_cache(maxsize=32)
 def _gauss_band_on(n: int, ws: int, device: str) -> torch.Tensor:
-    return torch.as_tensor(_gauss_band(n, ws)).to(device)
+    # a normal tensor even when first asked for under inference_mode:
+    # the cache serves later autograd calls too
+    with torch.inference_mode(False):
+        return torch.as_tensor(_gauss_band(n, ws)).to(device)
 
 
 def ssim_train(img1: torch.Tensor, img2: torch.Tensor,

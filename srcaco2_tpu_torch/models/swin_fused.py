@@ -22,10 +22,14 @@ the device:
     card, its plain version on the CPU). It has no backward, so a
     training module never takes it, as JAX's `allow_tiled = not train`.
     This is the serving path.
-  * windowed (any shape, CPU tensors only): the classic roll /
-    window-partition formulation, kept as a second oracle for tests.
-On CUDA tensors the shapes neither kernel path takes raise
-NotImplementedError: the windowed path is not ported to the card yet.
+  * windowed (every other shape, training or evaluation, on any
+    device, with autograd): the classic roll / window-partition
+    formulation of JAX's `_windowed_path`, in eager torch ops (cuBLAS
+    products on the card; JAX runs it through XLA, outside any Pallas
+    kernel). It trains the default x2 / x4 patches (48x48 and 24x24 LR,
+    T > 256) and evaluates images that are not multiples of 2ws.
+The dispatch is JAX's (swin_fused.py:186-206), so no shape that JAX
+accepts raises.
 
 Parameters are stacked over depth d (leading dim), named as the JAX
 leaves with LayerNorm `scale` -> `weight`; dense kernels keep the JAX
@@ -156,6 +160,7 @@ class FusedBlockStack(nn.Module):
         self.pair_op = fused_swin_block_pair
         self.pair = os.environ.get('SRCACO2_SWIN_PAIR', '0') != '0'
         self._plans = {}
+        self._win_plans = {}
 
     def reset_parameters(self, gen: torch.Generator):
         """LayerNorms at (1, 0), zero biases, truncated-normal dense
@@ -182,13 +187,7 @@ class FusedBlockStack(nn.Module):
         if (not self.training and 4 * ws * ws <= MAX_T
                 and h % (2 * ws) == 0 and w % (2 * ws) == 0):
             return self._tiled_path(x)
-        if x.device.type == 'cpu':
-            return self._windowed_path(x)
-        why = ('the tiled path is for evaluation only' if self.training
-               else f'{h}x{w} is not a multiple of the {2 * ws}-pixel tile')
-        raise NotImplementedError(
-            f'{h}x{w} tokens > {MAX_T} on the card: {why}, and the '
-            'windowed path runs only on the CPU so far; see ROADMAP.md')
+        return self._windowed_path(x)
 
     def _fused_path(self, x: torch.Tensor) -> torch.Tensor:
         """T <= 256: one fused block (with backward) per depth step, or
@@ -276,17 +275,35 @@ class FusedBlockStack(nn.Module):
             carry = y.reshape(b * h * w, c)[plan.trans[i]]
         return carry.reshape(b, h, w, c)
 
+    def _win_plan(self, h: int, w: int, device):
+        """(relative position index (ws^4,), shift mask (nW, n, n) f32)
+        on `device`, built once per (h, w, device) as `_plan` caches the
+        tile layout; normal tensors even when first built under
+        inference_mode (an eval forward), since training reuses them."""
+        key = (h, w, str(device))
+        if key not in self._win_plans:
+            ws = self.window_size
+            with torch.inference_mode(False):
+                rel = torch.as_tensor(
+                    relative_position_index(ws).reshape(-1),
+                    dtype=torch.long).to(device)
+                smask = torch.as_tensor(
+                    shift_attn_mask(h, w, ws, ws // 2)).to(device)
+            self._win_plans[key] = (rel, smask)
+        return self._win_plans[key]
+
     def _windowed_path(self, x: torch.Tensor) -> torch.Tensor:
-        """Classic shifted-window formulation (CPU)."""
+        """Classic shifted-window formulation, JAX's rounding points: f32
+        LayerNorm and softmax, compute-dtype operands with f32 sums.
+        With f32 compute the products must run in true f32 (TF32 off,
+        as the caller sets: SRServer, the trainer)."""
         b, h, w, c = x.shape
         ws, nh, d, cdt = self.window_size, self.num_heads, self.depth, \
             self.dtype
         hd = c // nh
         n = ws * ws
         nw = (h // ws) * (w // ws)
-        rel = torch.as_tensor(relative_position_index(ws).reshape(-1),
-                              dtype=torch.long)
-        smask = torch.as_tensor(shift_attn_mask(h, w, ws, ws // 2))
+        rel, smask = self._win_plan(h, w, x.device)
 
         def ln(z, g, bb):
             zf = z.float()

@@ -105,15 +105,19 @@ def window_index(h: int, w: int, ws: int, shift: int) -> np.ndarray:
 @functools.lru_cache(maxsize=64)
 def _mask_and_index_on(h: int, w: int, ws: int, shift: int, device: str):
     """full_attn_mask_and_index as tensors on `device`, copied there once
-    (a copy per call would stall the host on every block)."""
+    (a copy per call would stall the host on every block). Normal
+    tensors even when first asked for under inference_mode (an eval
+    forward): the cache serves later autograd calls too."""
     mask, rel = full_attn_mask_and_index(h, w, ws, shift)
-    return (torch.as_tensor(mask).to(device),
-            torch.as_tensor(rel.reshape(-1), dtype=torch.long).to(device))
+    with torch.inference_mode(False):
+        return (torch.as_tensor(mask).to(device),
+                torch.as_tensor(rel.reshape(-1), dtype=torch.long).to(device))
 
 
 @functools.lru_cache(maxsize=64)
 def _window_index_on(h: int, w: int, ws: int, shift: int, device: str):
-    return torch.as_tensor(window_index(h, w, ws, shift)).to(device)
+    with torch.inference_mode(False):     # as _mask_and_index_on
+        return torch.as_tensor(window_index(h, w, ws, shift)).to(device)
 
 
 def build_attn_bias(tables: torch.Tensor, h: int, w: int, ws: int,

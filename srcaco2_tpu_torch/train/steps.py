@@ -64,12 +64,22 @@ def loss_and_grads(model, master: MasterLoss, net_type: str, params: dict,
 def make_train_step(model, master: MasterLoss, tx, net_type: str,
                     pipe_cfg: P.PipeConfig, e_decay: float = 0.0,
                     steps_per_epoch: int = 1,
-                    netG: dict = None) -> Callable:
+                    netG: dict = None,
+                    steps_per_call: int = 1) -> Callable:
     """The train step: (state, hr_u8, lr_u8, idxs, draws) -> (state,
     loss holder, ok flag), where draws = pipeline.draw(gen, ...) are the
     batch's patch origins and dihedral modes (JAX derives them from a
     key inside the step). state.params must be the model's parameters;
-    the step updates them, the optimizer state and the EMA in place."""
+    the step updates them, the optimizer state and the EMA in place.
+
+    steps_per_call = K > 1, the superstep (JAX: a lax.scan over K steps
+    in one jitted call): idxs is (K, B), draws a sequence of K Draws, and
+    K updates run one after the other with no host read between them;
+    the holder's entries are the K steps' values stacked (K,), and ok is
+    one flag for all K. Each update is the one-step function, so K steps
+    in one call equal K calls of one step bit for bit. The caller picks
+    the chunk's K (the trainer never lets a call cross an epoch, eval or
+    save boundary), so idxs may hold fewer than steps_per_call rows."""
     P.check_ported(pipe_cfg)
 
     def step_fn(state: TrainState, hr_u8, lr_u8, idxs, draws):
@@ -101,7 +111,23 @@ def make_train_step(model, master: MasterLoss, tx, net_type: str,
             state.step = state.step + 1
         return state, holder, ok & ~corrupt
 
-    return step_fn
+    if steps_per_call <= 1:
+        return step_fn
+
+    def multi_fn(state: TrainState, hr_u8, lr_u8, idxs_k, draws_k):
+        if idxs_k.shape[0] != len(draws_k):
+            raise ValueError(f'{idxs_k.shape[0]} index rows, '
+                             f'{len(draws_k)} draws')
+        holders, oks = [], []
+        for idxs, draws in zip(idxs_k, draws_k):
+            state, holder, ok = step_fn(state, hr_u8, lr_u8, idxs, draws)
+            holders.append(holder)
+            oks.append(ok)
+        stacked = {k: torch.stack([h[k] for h in holders])
+                   for k in holders[0]}
+        return state, stacked, torch.stack(oks).all()
+
+    return multi_fn
 
 
 def make_eval_forward(model, net_type: str, scale: int, netG: dict = None,

@@ -78,7 +78,8 @@ def test_server_matches_jax_server(exp_dir, monkeypatch):
         srv(x.astype(np.float32))
 
 
-def test_entry_points_want_a_card_unless_cpu_is_asked():
+def test_entry_points_want_a_card_unless_cpu_is_asked(tmp_path,
+                                                     monkeypatch, exp_dir):
     if torch.cuda.is_available():
         pytest.skip('a card is visible: the default device is valid')
     with pytest.raises(RuntimeError, match='device="cpu"'):
@@ -86,6 +87,18 @@ def test_entry_points_want_a_card_unless_cpu_is_asked():
     with pytest.raises(RuntimeError, match='device="cpu"'):
         t_define_g(_args())
     assert resolve_device('cpu').type == 'cpu'
+    # the trainer's and the re-scorer's entry points: without --device
+    # cpu they raise before any data is read or any step runs
+    from srcaco2_tpu_torch import eval as t_eval, main as t_main
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        t_main.main(['--scale', '2', '--n_channels', '1', '--l2', 'True',
+                     '--train_dsets', 'caco2_train_X_2_in_256_out_512_cell_'
+                     'CELL0', '--data_root', str(tmp_path / 'missing')])
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        t_eval.main(['--exp_path', exp_dir])
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        TSRServer(exp_dir, batch_size=1, lr_hw=LR_HW)
 
 
 def _port_sources():
