@@ -101,6 +101,31 @@ non-zero:
                 in training, no K1 / K2; f32; batch 8; 32 / 4 / 4 images,
                 2 epochs: 8 steps; K5 in f32 on 256x256 LR validation);
                 ms per step, patches/s and peak memory
+  zoo_check     each zoo net (DFCAN, SRCNN, VDSR, MSLapSRN, SRFBN, ENLCN,
+                ACT, OmniSR) at full width, x8, from the same seeded
+                weights on the card and the CPU: one training step's loss
+                and grads at batch 4 of 16x16 LR (SRCNN: the 128x128
+                pre-upscale), l2 + 5 SSIM(19), f32 with TF32 off (1e-5 /
+                1e-4; a grad over that held in float64 on both devices)
+                and bf16 (1e-2 / 3e-2 by windowed_check's floor rule where
+                a CPU control shows the rule can hold the net; the median
+                bf16 noise); every op of the card's f32 and bf16 steps
+                held to float64 on its own inputs (op_replay); an f32
+                eval forward at 64x64 LR (1e-5 of max |out|); SRFBN's 4
+                steps and MSLapSRN's 2 levels in the loss; no kernel
+                launch; see zoo_check
+  zoo_train     each zoo net's train step (bf16 over f32 params): DFCAN
+                as bench.py's step (batch 128, 10 timed steps), the
+                others at the README's batch 64 (5 timed steps); ms/step,
+                patches/s, peak memory; the device time of one step by
+                kernel and the device's busy share for DFCAN (with the
+                FFT's share), ACT and OmniSR
+  entry_zoo     `main` with the README's flags (x8, batch 64, amp, l2 + 5
+                SSIM(19), ROI eval and selection) and `eval` for each zoo
+                net on one synthetic dataset (128 / 4 / 4 images of
+                512^2, 1 epoch of 2 steps), four nets at a time; the
+                gates of entry_x8 with no kernel launch; SRCNN's best
+                model served through SRServer (3 requests, a ragged tail)
   kernels       the kernels line (K1-K6, one JSON object)
 followed by the nvidia-smi line and, last, the {"ok": true, ...} line.
 Imports nothing of JAX or of the JAX package.
@@ -299,7 +324,7 @@ def train_block_inputs(dev, gen, shift):
 
 
 def _rel_l2(a, b):
-    return float((a.float() - b.float()).norm() / b.float().norm()
+    return float((a.double() - b.double()).norm() / b.double().norm()
                  .clamp_min(1e-30))
 
 
@@ -668,10 +693,12 @@ def kernel_time_pair(dev, gen):
         shape=list(xd.shape), dtype='bf16', shifts=[0, WS // 2])
 
 
-def profile_device(fn, wall_ms):
+def profile_device(fn, wall_ms, groups=None):
     """Device time of one call of fn by device activity (kernels and
     copies, torch.profiler), and the device's busy share of the call's
-    unprofiled wall time `wall_ms`."""
+    unprofiled wall time `wall_ms`; with `groups` ({label: substrings}),
+    also the device ms and share of the activities whose lower-cased
+    name holds one of a label's substrings (`group_ms`)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -689,10 +716,15 @@ def profile_device(fn, wall_ms):
     device_ms = sum(r[1] for r in rows)
     if device_ms <= 0:
         raise RuntimeError('the profiler recorded no device time')
-    return dict(device_ms=device_ms, wall_ms=wall_ms,
-                device_busy_share=device_ms / wall_ms,
-                top=[dict(name=k[:80], ms=ms, calls=n, share=ms / device_ms)
-                     for k, ms, n in rows[:12]])
+    out = dict(device_ms=device_ms, wall_ms=wall_ms,
+               device_busy_share=device_ms / wall_ms,
+               top=[dict(name=k[:80], ms=ms, calls=n, share=ms / device_ms)
+                    for k, ms, n in rows[:12]])
+    for label, subs in (groups or {}).items():
+        ms = sum(r[1] for r in rows if any(t in r[0].lower() for t in subs))
+        out.setdefault('group_ms', {})[label] = dict(
+            ms=ms, share=ms / device_ms)
+    return out
 
 
 def smem_bytes(build):
@@ -1291,6 +1323,34 @@ def default_x2_args(amp):
     return args
 
 
+def hold_to_floor(e, floor, own, tol, floor_above):
+    """The bf16 rule of windowed_check and zoo_check for one value (a loss
+    or a grad), `e` its distance from the CPU's: within `tol`, or else
+    held to the CPU's bf16 noise floor (`floor`: the CPU's bf16 value
+    against its f32 value of the same weights and batch) over
+    `floor_above`, with e within 2 x floor and the card's bf16 value no
+    further from the card's f32 value (`own`) than 1.25 x floor + 1e-3.
+    The floor is the CPU's alone."""
+    return e <= tol or (floor > floor_above and e <= 2 * floor
+                        and own <= 1.25 * floor + 1e-3)
+
+
+def bf16_grads_held(card, cpu, card32, cpu32, tol=3e-2, floor_above=1.5e-2):
+    """hold_to_floor over every grad ({name: tensor}, bf16 runs against
+    the same device's f32 run): (ok, {name: relative L2 card vs CPU},
+    {name: the floor's readings} of the grads over tol)."""
+    rel = {k: _rel_l2(card[k], cpu[k]) for k in card}
+    floored = {}
+    for k, e in rel.items():
+        if e > tol:
+            floor, own = _rel_l2(cpu[k], cpu32[k]), _rel_l2(card[k], card32[k])
+            floored[k] = dict(card_vs_cpu=e, cpu_bf16_vs_f32=floor,
+                              card_bf16_vs_f32=own,
+                              ok=hold_to_floor(e, floor, own, tol,
+                                               floor_above))
+    return all(f['ok'] for f in floored.values()), rel, floored
+
+
 def windowed_check(dev):
     """The windowed path of FusedBlockStack on the card (48x48 LR
     training patches, T = 2304 > 256; an eval forward at 40x40 LR, a
@@ -1356,26 +1416,17 @@ def windowed_check(dev):
     out, ok = {}, True
     for name in ('f32', 'bf16'):
         c, r = runs[name, 'cuda'], runs[name, 'cpu']
-        rel = {k: _rel_l2(c['grads'][k], r['grads'][k]) for k in c['grads']}
-        worst = max(rel, key=rel.get)
         if name == 'f32':
             tol = dict(loss_rtol=1e-5, grad_rel_l2=1e-4)
-            grads_ok, floored = rel[worst] <= 1e-4, {}
+            rel = {k: _rel_l2(c['grads'][k], r['grads'][k])
+                   for k in c['grads']}
+            grads_ok, floored = max(rel.values()) <= 1e-4, {}
         else:
             tol = dict(loss_rtol=1e-2, grad_rel_l2=3e-2, floor_above=1.5e-2)
-            ref_c = runs['f32', 'cuda']['grads']
-            ref_r = runs['f32', 'cpu']['grads']
-            floored, grads_ok = {}, True
-            for k, e in rel.items():
-                if e <= tol['grad_rel_l2']:
-                    continue
-                floor = _rel_l2(r['grads'][k], ref_r[k])
-                card = _rel_l2(c['grads'][k], ref_c[k])
-                floored[k] = dict(card_vs_cpu=e, cpu_bf16_vs_f32=floor,
-                                  card_bf16_vs_f32=card)
-                grads_ok = (grads_ok and floor > tol['floor_above']
-                            and e <= 2 * floor
-                            and card <= 1.25 * floor + 1e-3)
+            grads_ok, rel, floored = bf16_grads_held(
+                c['grads'], r['grads'], runs['f32', 'cuda']['grads'],
+                runs['f32', 'cpu']['grads'])
+        worst = max(rel, key=rel.get)
         rec = dict(loss_card=c['loss'], loss_cpu=r['loss'],
                    loss_rel=abs(c['loss'] - r['loss']) / abs(r['loss']),
                    grad_rel_l2_max=rel[worst], worst_param=worst,
@@ -1476,6 +1527,642 @@ def windowed_profile(dev, smi, steps=5):
     ok = (bool(torch.isfinite(holder['total'])) and bool(ok)
           and all(v == 0 for v in launches.values()))
     return rec, ok
+
+
+# the zoo (every ported net but SwinIR) at its full default width, x8 on
+# 16x16 LR patches (h_size 128), one channel
+ZOO = ('DFCAN', 'SRCNN', 'VDSR', 'MSLapSRN', 'SRFBN', 'ENLCN', 'ACT',
+       'OmniSR')
+# intermediate outputs at x8: SRFBN's 4 steps, MSLapSRN's first 2 levels
+ZOO_LEVELS = {'SRFBN': 4, 'MSLapSRN': 2}
+# README.md:91-100's batch, and bench.py's DFCAN step (bench.py:221-240)
+ZOO_BATCH, DFCAN_BATCH = 64, TRAIN_B
+# the nets whose train step zoo_train profiles: bench.py's, and the two
+# slowest steps
+ZOO_PROFILED = ('DFCAN', 'ACT', 'OmniSR')
+# zoo_check's bf16 control: the CPU's step again from weights moved by
+# ZOO_JITTER relative; where it moves more than ZOO_NOISE_SHARE of the
+# grads beyond the tolerance from the CPU's first run, the per-grad rule
+# does not hold that net end to end
+ZOO_JITTER, ZOO_NOISE_SHARE = 2.0 ** -20, 0.01
+
+
+def zoo_args(nt, amp):
+    """nt's defaults (config/net_defaults.py) at x8, h_size 128, one
+    channel; l2 + 5 neg-SSIM(19), as the README's command."""
+    from srcaco2_tpu_torch.config.defaults import get_config
+    from srcaco2_tpu_torch.config.net_defaults import init_net_g
+    args = get_config(nt)
+    args.update(scale=SCALE, n_channels=1, h_size=H_SIZE, amp=amp, l2=True,
+                ssim=True, ssim_lambda=5.0, ssim_window_s=19)
+    args['netG'] = init_net_g({'net_type': nt}, args)
+    return args
+
+
+def zoo_batch(dev, b, seed):
+    """A training batch of b 16x16 LR / 128x128 HR patches (and the
+    bicubic pre-upscale) assembled on `dev` from random uint8 images."""
+    import torch
+    from srcaco2_tpu_torch.data import pipeline as P
+    from srcaco2_tpu_torch.utils import reproducibility as R
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    hr = torch.randint(0, 256, (b, H_SIZE, H_SIZE, 1), generator=gen,
+                       device=dev, dtype=torch.uint8)
+    lr = torch.randint(0, 256, (b, PATCH, PATCH, 1), generator=gen,
+                       device=dev, dtype=torch.uint8)
+    cfg = P.PipeConfig(scale=SCALE, h_size=H_SIZE)
+    return P.assemble(hr, lr, torch.arange(b, device=dev),
+                      P.draw(R.step_generator(seed, 0, dev), b, cfg,
+                             (H_SIZE, H_SIZE)), cfg)
+
+
+# the op replay's tolerance, relative L2 of the card's output against the
+# float64 result of the same op on the same inputs, by the card's output
+# dtype: f32 (TF32 off) and complex64 within 1e-5, far under TF32's
+# ~5e-4; bf16 within 2^-7, four times the output's own rounding (2^-9)
+REPLAY_TOL = {'float32': 1e-5, 'complex64': 1e-5, 'bfloat16': 2.0 ** -7,
+              'float64': 1e-12}
+# ops whose output the replay does not hold: storage without values
+# (empty*) and a tensor read out to the host as a number
+REPLAY_SKIP = ('aten.empty', 'aten.new_empty', 'aten._local_scalar_dense')
+# linear reductions (sums of products): an output that cancels is held to
+# the tolerance of the same op on the inputs' absolute values
+REPLAY_SUMS = ('aten.sum', 'aten.mean', 'aten.mm', 'aten.bmm', 'aten.addmm',
+               'aten.baddbmm', 'aten.convolution')
+
+
+def op_replay():
+    """A dispatch mode that runs every aten op of the code under it (the
+    forward and, through autograd, the backward) as usual, and again on
+    the CPU in float64 (complex128) from copies of the same inputs, and
+    holds each floating output to that result within REPLAY_TOL of its
+    dtype (relative L2). Over that, a linear reduction (REPLAY_SUMS)
+    passes if its distance is within the tolerance of the float64 result
+    on the inputs' absolute values (the sum of the terms' sizes: an
+    output that cancels keeps only the f32 sums' absolute error).
+    Integer outputs are held equal, except indices beside their values
+    (a max pool's: ties; the values are held). Views, random ops and
+    storage without values are not held; an op that cannot run on the
+    CPU is a failure. Every input is the card's own, so the rounding
+    noise of one op does not reach the next: each op is held alone.
+
+    `summary()` gives per op: calls, the distance furthest over (or
+    least under) its tolerance, calls held by the absolute values, the
+    bf16 outputs and how many of them are not the float64 result
+    rounded (`n_off`: a different sum order flips few; a different
+    constant or intermediate rounding many), and up to 20 failures."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten, tree_map
+
+    def wide(x):
+        # a float64 (complex128) CPU copy of a tensor argument, made
+        # before the op runs (it may write its input); a device argument
+        # becomes the CPU
+        if isinstance(x, torch.Tensor):
+            t = x.detach().to('cpu', copy=True)
+            if t.is_complex():
+                return t.to(torch.complex128)
+            return t.double() if t.is_floating_point() else t
+        return torch.device('cpu') if isinstance(x, torch.device) else x
+
+    def norm(t):
+        return float(t.abs().square().sum().sqrt())
+
+    def dist(o, r, scale=None):
+        n = norm(r if scale is None else scale)
+        d = norm(o.detach().cpu().to(r.dtype) - r)
+        return d / n if n > 0 else d
+
+    class OpReplay(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops, self.failures, self.skipped = {}, [], {}
+
+        def _fail(self, name, **kw):
+            self.ops[name]['failed'] += 1
+            if len(self.failures) < 20:
+                self.failures.append(dict(op=name, **kw))
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            name = str(func)
+            if (func.is_view or name.startswith(REPLAY_SKIP)
+                    or torch.Tag.nondeterministic_seeded in func.tags):
+                self.skipped[name] = self.skipped.get(name, 0) + 1
+                return func(*args, **kwargs)
+            w = tree_map(wide, (args, kwargs))
+            out = func(*args, **kwargs)
+            rec = self.ops.setdefault(name, dict(
+                calls=0, max_over_tol=0.0, rel=None, tol=None,
+                via_abs=0, max_rel_of_abs=0.0, int_mismatch=0, failed=0,
+                n_out=0, n_off=0))
+            rec['calls'] += 1
+            try:
+                ref = func(*w[0], **w[1])
+            except Exception as e:      # noqa: BLE001 - recorded, fails
+                self._fail(name, error=repr(e)[:300])
+                return out
+            outs, refs = tree_flatten(out)[0], tree_flatten(ref)[0]
+            abs_outs = None
+            for i, (o, r) in enumerate(zip(outs, refs)):
+                if not isinstance(o, torch.Tensor):
+                    continue
+                if not (o.is_floating_point() or o.is_complex()):
+                    if any(t.is_floating_point() for t in outs
+                           if isinstance(t, torch.Tensor)):
+                        continue        # indices beside their values: ties
+                    bad = int((o.detach().cpu() != r.to(o.dtype)).sum())
+                    rec['int_mismatch'] += bad
+                    if bad:
+                        self._fail(name, out=i, int_mismatch=bad)
+                    continue
+                tol = REPLAY_TOL[str(o.dtype).split('.')[-1]]
+                if o.dtype == torch.bfloat16:
+                    rec['n_out'] += o.numel()
+                    rec['n_off'] += int((o.detach().cpu()
+                                         != r.to(o.dtype)).sum())
+                e = dist(o, r)
+                if rec['tol'] is None or e / tol >= rec['max_over_tol']:
+                    rec.update(max_over_tol=e / tol, rel=e, tol=tol)
+                if e <= tol:
+                    continue
+                if name.startswith(REPLAY_SUMS):
+                    if abs_outs is None:
+                        a = tree_map(lambda t: t.abs() if isinstance(
+                            t, torch.Tensor) and t.is_floating_point()
+                            else t, w)
+                        abs_outs = tree_flatten(func(*a[0], **a[1]))[0]
+                    e_abs = dist(o, r, abs_outs[i])
+                    rec['max_rel_of_abs'] = max(rec['max_rel_of_abs'], e_abs)
+                    if e_abs <= tol:
+                        rec['via_abs'] += 1
+                        continue
+                self._fail(name, out=i, rel=e, tol=tol,
+                           dtype=str(o.dtype), shape=list(o.shape))
+            return out
+
+        def summary(self):
+            return dict(
+                n_calls=sum(r['calls'] for r in self.ops.values()),
+                n_ops=len(self.ops),
+                n_failed=sum(r['failed'] for r in self.ops.values()),
+                ops=self.ops, failures=self.failures, skipped=self.skipped)
+
+    return OpReplay()
+
+
+def _as_float64(model):
+    """Every module of `model` computing in float64 (the port's modules
+    cast to their `dtype` attribute in their forwards): the reference in
+    which a pre-activation does not cross a ReLU's kink by rounding."""
+    import torch
+    for m in model.modules():
+        if isinstance(getattr(m, 'dtype', None), torch.dtype):
+            m.dtype = torch.float64
+    return model
+
+
+def _levels_check(nt, model, master, batch, loss):
+    """The curriculum / progressive dispatch on the card: the number of
+    intermediate outputs, and the loss recomputed as the mean of the
+    per-level master losses (SRFBN: each step against the target;
+    MSLapSRN: the final output, then each level against the target
+    resized to it)."""
+    import torch
+    from srcaco2_tpu_torch.ops.resize import resize2d
+    from srcaco2_tpu_torch.train.steps import model_outputs, net_input
+    with torch.no_grad():
+        outs = model_outputs(model(net_input(nt, batch)))
+        inter = outs['intermediate_outs']
+        if nt == 'SRFBN':
+            parts = [master({**outs, 'out': o}, batch)[0] for o in inter]
+        else:
+            parts = [master(outs, batch)[0]]
+            for o in inter:
+                t = torch.clip(resize2d(batch['h_im'], o.shape[-2:],
+                                        align_corners=True), 0.0, 1.0)
+                parts.append(master({**outs, 'out': o},
+                                    {**batch, 'h_im': t})[0])
+        mean = float(sum(float(p) for p in parts) / len(parts))
+    return dict(levels=len(inter), level_losses=[float(p) for p in parts],
+                mean_of_levels=mean,
+                ok=(len(inter) == ZOO_LEVELS[nt]
+                    and abs(mean - loss) <= 1e-4 * abs(loss)))
+
+
+def _zoo_step(nt, args, d, batch, f64=False, replay=False, jitter=0.0):
+    """One loss_and_grads of nt's seeded model on `d`: loss, grads (on the
+    CPU, f32), seconds, launches, the model and master (for the levels
+    check). f64 runs every module and the batch in float64; `replay` runs
+    the step under op_replay (its summary under 'replay'); `jitter`
+    first scales every parameter by 1 + jitter * N(0, 1) (a fixed draw):
+    the same weights to far under a bf16 ulp, some of them rounded to
+    bf16 the other way."""
+    import contextlib
+    import torch
+    from srcaco2_tpu_torch.losses.master import build_loss
+    from srcaco2_tpu_torch.models.registry import define_g
+    from srcaco2_tpu_torch.train.steps import loss_and_grads
+    model = define_g(args, d, seed=0).train()
+    if jitter:
+        g = torch.Generator().manual_seed(5)
+        with torch.no_grad():
+            for p in model.parameters():
+                p.mul_(1.0 + jitter * torch.randn(p.shape, generator=g)
+                       .to(p.device))
+    if f64:
+        # the batch too: an f32 bicubic of the input (VDSR's pre-upscale,
+        # SRFBN's bilinear) differs between the devices by rounding
+        _as_float64(model)
+        batch = {k: v.double() for k, v in batch.items()}
+    master = build_loss(args)
+    params = dict(model.named_parameters())
+    mode = op_replay() if replay else contextlib.nullcontext()
+    reset_launches()
+    t0 = time.perf_counter()
+    with mode:
+        loss, _, _, grads = loss_and_grads(model, master, nt, params, batch,
+                                           0, 1.0)
+        if d.type == 'cuda':
+            torch.cuda.synchronize()
+    rec = dict(loss=float(loss),
+               grads={k: g.float().cpu() for k, g in grads.items()},
+               seconds=time.perf_counter() - t0, launches=read_launches(),
+               model=model, master=master)
+    if replay:
+        rec['replay'] = mode.summary()
+    return rec
+
+
+def _replay_brief(summary):
+    """An op replay's summary in brief: calls, failures, the largest
+    distance over its tolerance and its op, the op with the largest
+    share of bf16 outputs off the rounded float64 result, calls held
+    through the absolute values' scale."""
+    worst = max(summary['ops'].items(),
+                key=lambda kv: kv[1]['max_over_tol'], default=(None, {}))
+    off = max(summary['ops'].items(),
+              key=lambda kv: kv[1]['n_off'] / max(kv[1]['n_out'], 1),
+              default=(None, {'n_off': 0, 'n_out': 1}))
+    return dict(n_calls=summary['n_calls'], n_failed=summary['n_failed'],
+                worst_op=worst[0], worst_rel=worst[1].get('rel'),
+                worst_tol=worst[1].get('tol'), most_off_op=off[0],
+                most_off_share=off[1]['n_off'] / max(off[1]['n_out'], 1),
+                via_abs=sum(r['via_abs'] for r in summary['ops'].values()))
+
+
+def _zoo_summary(rec):
+    """zoo_check's record without the per-grad and per-op details: per net
+    and check, the verdict, the worst values and the op replay in
+    brief."""
+    keys = ('ok', 'loss_rel', 'grad_rel_l2_max', 'worst_param',
+            'grad_rel_l2_max_unfloored', 'median_card_bf16_vs_f32',
+            'median_cpu_bf16_vs_f32', 'f64_loss_rel', 'rel_l2',
+            'max_abs_diff', 'f64_card_vs_cpu', 'end_to_end_gated',
+            'end_to_end_held', 'max_card_over_cpu_f32_vs_f64')
+    out = {}
+    for nt, res in rec.items():
+        if not isinstance(res, dict):
+            out[nt] = res
+            continue
+        out[nt] = {'ok': res['ok'], 'seconds': res['seconds']}
+        for k, v in res.items():
+            if isinstance(v, dict):
+                fl = v.get('floored', {})
+                out[nt][k] = {f: v[f] for f in keys if f in v} | {
+                    'n_floored': len(fl),
+                    'n_floored_failed': sum(not f.get('ok', True)
+                                            for f in fl.values())}
+                if 'replay' in v:
+                    out[nt][k]['replay'] = _replay_brief(v['replay'])
+                if 'control' in v:
+                    out[nt][k]['control'] = {
+                        f: v['control'][f] for f in ('loss_rel', 'n_moved',
+                                                     'moved_share')}
+    return out
+
+
+def zoo_check(dev):
+    """Each zoo net at full width, x8, from the same seeded weights on
+    the card and on the CPU: one training step's loss and grads
+    (loss_and_grads, batch 4 of 16x16 LR patches, SRCNN on their 128x128
+    pre-upscale; l2 + 5 neg-SSIM(19)) in f32 with TF32 off and in bf16,
+    and an f32 eval forward at 64x64 LR (batch 1); no kernel launch on
+    these paths; SRFBN's 4 steps and MSLapSRN's 2 levels present in the
+    loss (`_levels_check`).
+
+    Op by op: the card's f32 and bf16 steps on the batch's first patch
+    run under op_replay, which holds every op, forward and backward, to
+    the float64 result of the same op on the card's own inputs
+    (REPLAY_TOL: f32 1e-5, bf16 2^-7). No op fails in either step. The
+    share of bf16 outputs that are not the rounded float64 result is
+    recorded per op (`n_off`), not held: CUDA's bf16 tanh and sigmoid
+    backward round after each of their operations.
+
+    End to end, f32: loss within 1e-5 relative, every grad within 1e-4
+    relative L2. The zoo's nets are ReLU-family nets (ReLU, leaky ReLU,
+    PReLU): where a pre-activation lies within rounding of 0, the two
+    devices' sums put it on either side of the kink, and the grads
+    upstream move by up to ~1e-3 in f32. A grad over 1e-4 is held in
+    float64 (`_as_float64`: the same step with every module and the
+    batch in float64, on both devices, where no rounding crosses a
+    kink): the card's float64 grad within 1e-6 of the CPU's, the float64
+    losses within 1e-9. The card's own f32 arithmetic is what op_replay
+    holds.
+
+    End to end, bf16: the card's median bf16-vs-f32 distance over all
+    grads within 1.25 x the CPU's + 1e-3; the loss (1e-2, floor over
+    5e-3) and every grad (3e-2, floor over 1.5e-2) by windowed_check's
+    rule (hold_to_floor, the CPU's floor alone) where that rule can
+    hold the net. Kink crossings in bf16 move grads by whole multiples
+    of the bf16 noise: one more rounding of the same step, on either
+    device, puts a grad's bf16 value anywhere within that noise. The
+    control measures it without the card: the CPU's bf16 step again from
+    weights moved by ZOO_JITTER (2^-20) relative, which rounds some of
+    them to bf16 the other way. Where the control's loss lies within
+    1e-2 of the CPU's first run and at most ZOO_NOISE_SHARE (1%) of its
+    grads further than 3e-2, the card's loss and grads must meet the
+    rule (`end_to_end_gated`); elsewhere the rule cannot tell a fault
+    from the noise at these weights, the card's verdicts are recorded
+    (`end_to_end_held`, `floored`) and op_replay holds the step.
+
+    The eval forward: relative L2 within 1e-5 and max |card - CPU| within
+    1e-4 of max |CPU output|, or, over that, the float64 forwards of the
+    two devices within 1e-9 relative L2 and the card's f32 output no
+    further from its float64 one than 4 x the CPU's + 1e-7 (ACT, whose
+    outputs reach ~1e3 at these weights: on an NVIDIA H100 80GB HBM3 at
+    700 W its f32 forward lay 2.5 x as far from float64 as the CPU's,
+    its float64 forward 1.4e-14 from the CPU's)."""
+    import statistics as st
+    import torch
+    from srcaco2_tpu_torch.models.registry import define_g
+    from srcaco2_tpu_torch.train.steps import model_outputs
+    allow = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cpu = torch.device('cpu')
+    batch = zoo_batch(dev, 4, 11)
+    batch_cpu = {k: v.cpu() for k, v in batch.items()}
+    batch_1 = {k: v[:1] for k, v in batch.items()}
+    sides = (('card', dev, batch), ('cpu', cpu, batch_cpu))
+    x_eval = torch.rand((1, 1, LR, LR),
+                        generator=torch.Generator().manual_seed(12))
+
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+
+    out, ok_all = {}, True
+    for nt in ZOO:
+        t_net = time.perf_counter()
+        runs = {}
+        for name, amp in (('f32', False), ('bf16', True)):
+            args = zoo_args(nt, amp)
+            for side, d, bt in sides:
+                rec = _zoo_step(nt, args, d, bt)
+                if side == 'card' and name == 'f32' and nt in ZOO_LEVELS:
+                    rec['levels'] = _levels_check(
+                        nt, rec['model'], rec['master'], bt, rec['loss'])
+                del rec['model'], rec['master']
+                runs[name, side] = rec
+            rec = _zoo_step(nt, args, dev, batch_1, replay=True)
+            runs[name, 'card']['replay'] = rec['replay']
+            del rec
+        rec = _zoo_step(nt, zoo_args(nt, True), cpu, batch_cpu,
+                        jitter=ZOO_JITTER)
+        del rec['model'], rec['master']
+        runs['bf16', 'control'] = rec
+        res = {}
+        # f32
+        c, r = runs['f32', 'card'], runs['f32', 'cpu']
+        grel = {k: _rel_l2(c['grads'][k], r['grads'][k]) for k in c['grads']}
+        tol = dict(loss_rtol=1e-5, grad_rel_l2=1e-4, f64_grad_rel_l2=1e-6,
+                   f64_loss_rtol=1e-9)
+        loss_ok = rel(c['loss'], r['loss']) <= tol['loss_rtol']
+        floored, extra = {}, {}
+        if any(e > tol['grad_rel_l2'] for e in grel.values()):
+            for side, d, bt in sides:
+                rec = _zoo_step(nt, zoo_args(nt, False), d, bt, f64=True)
+                del rec['model'], rec['master']
+                runs['f64', side] = rec
+            c64, r64 = runs['f64', 'card'], runs['f64', 'cpu']
+            for k, e in grel.items():
+                if e > tol['grad_rel_l2']:
+                    f = dict(card_vs_cpu=e,
+                             f64_card_vs_cpu=_rel_l2(c64['grads'][k],
+                                                     r64['grads'][k]),
+                             card_f32_vs_f64=_rel_l2(c['grads'][k],
+                                                     c64['grads'][k]),
+                             cpu_f32_vs_f64=_rel_l2(r['grads'][k],
+                                                    r64['grads'][k]))
+                    f['ok'] = f['f64_card_vs_cpu'] <= tol['f64_grad_rel_l2']
+                    floored[k] = f
+            extra['f64_loss_rel'] = rel(c64['loss'], r64['loss'])
+            extra['max_card_over_cpu_f32_vs_f64'] = max(
+                f['card_f32_vs_f64'] / max(f['cpu_f32_vs_f64'], 1e-30)
+                for f in floored.values())
+            loss_ok = loss_ok and extra['f64_loss_rel'] <= tol['f64_loss_rtol']
+        res['train_f32'] = dict(
+            loss_card=c['loss'], loss_cpu=r['loss'],
+            loss_rel=rel(c['loss'], r['loss']), loss_ok=loss_ok,
+            grads_ok=all(f['ok'] for f in floored.values()), **extra)
+        # bf16
+        c, r = runs['bf16', 'card'], runs['bf16', 'cpu']
+        c32, r32 = runs['f32', 'card'], runs['f32', 'cpu']
+        k_ = runs['bf16', 'control']
+        btol = dict(loss_rtol=1e-2, grad_rel_l2=3e-2, loss_floor_above=5e-3,
+                    floor_above=1.5e-2, median_floor_ratio=1.25,
+                    control_jitter=ZOO_JITTER,
+                    control_noise_share=ZOO_NOISE_SHARE)
+        lc, lr_ = rel(c['loss'], c32['loss']), rel(r['loss'], r32['loss'])
+        loss_held = hold_to_floor(rel(c['loss'], r['loss']), lr_, lc,
+                                  btol['loss_rtol'],
+                                  btol['loss_floor_above'])
+        grads_held, brel, bfloored = bf16_grads_held(
+            c['grads'], r['grads'], c32['grads'], r32['grads'])
+        # the control against the CPU's first run
+        moved = [k for k in brel if _rel_l2(k_['grads'][k], r['grads'][k])
+                 > btol['grad_rel_l2']]
+        ctrl = dict(loss=k_['loss'], loss_rel=rel(k_['loss'], r['loss']),
+                    n_moved=len(moved), moved_share=len(moved) / len(brel),
+                    moved=sorted(moved)[:20])
+        fc = [_rel_l2(c['grads'][k], c32['grads'][k]) for k in brel]
+        fr = [_rel_l2(r['grads'][k], r32['grads'][k]) for k in brel]
+        res['train_bf16'] = dict(
+            loss_card=c['loss'], loss_cpu=r['loss'],
+            loss_rel=rel(c['loss'], r['loss']),
+            loss_card_bf16_vs_f32=lc, loss_cpu_bf16_vs_f32=lr_,
+            loss_ok=loss_held, grads_ok=grads_held,
+            end_to_end_held=loss_held and grads_held,
+            end_to_end_gated=(ctrl['loss_rel'] <= btol['loss_rtol']
+                              and ctrl['moved_share']
+                              <= btol['control_noise_share']),
+            control=ctrl,
+            median_card_bf16_vs_f32=st.median(fc),
+            median_cpu_bf16_vs_f32=st.median(fr), **btol)
+        b = res['train_bf16']
+        b['median_ok'] = (b['median_card_bf16_vs_f32']
+                          <= 1.25 * b['median_cpu_bf16_vs_f32'] + 1e-3)
+        for name, grel_, fl, t in (('f32', grel, floored, tol),
+                                   ('bf16', brel, bfloored, btol)):
+            c = runs[name, 'card']
+            worst = max(grel_, key=grel_.get)
+            v = res[f'train_{name}']
+            v.update(grad_rel_l2_max=grel_[worst], worst_param=worst,
+                     grad_rel_l2_max_unfloored=max(
+                         (e for k, e in grel_.items() if k not in fl),
+                         default=0.0),
+                     floored=fl, n_grads=len(grel_),
+                     grads_finite=all(bool(torch.isfinite(g).all())
+                                      for g in c['grads'].values()),
+                     card_seconds=c['seconds'],
+                     cpu_seconds=runs[name, 'cpu']['seconds'],
+                     launches=c['launches'], replay=c['replay'], **t)
+            if 'levels' in c:
+                v['levels'] = c['levels']
+            held_ = (v['loss_ok'] and v['grads_ok'] if name == 'f32'
+                     else v['median_ok'] and (v['end_to_end_held']
+                                              or not v['end_to_end_gated']))
+            v['ok'] = (held_ and v['grads_finite']
+                       and c['replay']['n_failed'] == 0
+                       and v.get('levels', {}).get('ok', True)
+                       and all(n == 0 for n in c['launches'].values()))
+        del runs
+        # an f32 evaluation forward at 64x64 LR (SRCNN: its 512x512
+        # pre-upscale)
+        args = zoo_args(nt, False)
+        x = x_eval
+        if nt == 'SRCNN':
+            from srcaco2_tpu_torch.ops.resize import resize2d
+            x = torch.clip(resize2d(x, (LR * SCALE, LR * SCALE)), 0, 1)
+        ys = {}
+
+        def forward(side, d, f64=False):
+            model = define_g(args, d, seed=0)
+            xd = x.to(d)
+            if f64:
+                _as_float64(model)
+                xd = xd.double()
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                y = model_outputs(model(xd))['out'].double().cpu()
+            ys[side + ('_f64' if f64 else '') + '_s'] = \
+                time.perf_counter() - t0
+            return y
+
+        reset_launches()
+        for side, d, _ in sides:
+            ys[side] = forward(side, d)
+        launches = read_launches()
+        err = float((ys['card'] - ys['cpu']).abs().max())
+        scale_ = float(ys['cpu'].abs().max())
+        rel_l2 = _rel_l2(ys['card'], ys['cpu'])
+        ev = dict(shape=list(ys['card'].shape), rel_l2=rel_l2,
+                  max_abs_diff=err, max_abs_out=scale_, rel_l2_tol=1e-5,
+                  max_abs_of_max=1e-4, launches=launches,
+                  card_seconds=ys['card_s'], cpu_seconds=ys['cpu_s'])
+        close = rel_l2 <= 1e-5 and err <= 1e-4 * scale_
+        if not close:
+            for side, d, _ in sides:
+                ys[side + '_f64'] = forward(side, d, f64=True)
+            ev.update(f64_card_vs_cpu=_rel_l2(ys['card_f64'],
+                                              ys['cpu_f64']),
+                      card_f32_vs_f64=_rel_l2(ys['card'], ys['card_f64']),
+                      cpu_f32_vs_f64=_rel_l2(ys['cpu'], ys['cpu_f64']))
+            close = (ev['f64_card_vs_cpu'] <= 1e-9
+                     and ev['card_f32_vs_f64']
+                     <= 4 * ev['cpu_f32_vs_f64'] + 1e-7)
+        ev['ok'] = (close
+                    and ev['shape'] == [1, 1, LR * SCALE, LR * SCALE]
+                    and bool(torch.isfinite(ys['card']).all())
+                    and all(v == 0 for v in launches.values()))
+        res['eval_f32_64x64'] = ev
+        res['seconds'] = time.perf_counter() - t_net
+        res['ok'] = all(v['ok'] for k, v in res.items()
+                        if isinstance(v, dict))
+        out[nt] = res
+        ok_all = ok_all and res['ok']
+        print(json.dumps({'zoo_check_net': nt,
+                          **_zoo_summary({nt: res})[nt]}), flush=True)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = \
+        allow
+    return out, ok_all
+
+
+def zoo_train(dev, smi):
+    """Each zoo net's train step on the card (bf16 over f32 params, the
+    README's amp; random seeded weights; l2 + 5 neg-SSIM(19); Adam) at
+    x8 on 16x16 LR patches: DFCAN as bench.py's step at batch 128 with 10
+    timed steps, the others at the README's batch 64 with 5; one
+    warm-up step each, host clock synchronised around the timed steps;
+    ms/step, patches/s, peak memory, no kernel launch; the device time
+    of one step by kernel and the device's busy share (profile_device)
+    for ZOO_PROFILED, DFCAN's with the FFT's share (cuFFT's kernels)."""
+    import torch
+    from srcaco2_tpu_torch.data import pipeline as P
+    from srcaco2_tpu_torch.losses.master import build_loss
+    from srcaco2_tpu_torch.models.registry import define_g
+    from srcaco2_tpu_torch.train.schedule import build_optimizer
+    from srcaco2_tpu_torch.train.state import TrainState
+    from srcaco2_tpu_torch.train.steps import make_train_step
+    cfg = P.PipeConfig(scale=SCALE, h_size=H_SIZE)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    n_img = 2 * DFCAN_BATCH
+    hr = torch.randint(0, 256, (n_img, H_SIZE, H_SIZE, 1), generator=gen,
+                       device=dev, dtype=torch.uint8)
+    lr = torch.randint(0, 256, (n_img, PATCH, PATCH, 1), generator=gen,
+                       device=dev, dtype=torch.uint8)
+    out, ok_all = {}, True
+    for nt in ZOO:
+        b, steps = (DFCAN_BATCH, 10) if nt == 'DFCAN' else (ZOO_BATCH, 5)
+        args = zoo_args(nt, True)
+        model = define_g(args, dev, seed=0).train()
+        tx = build_optimizer(args['train'])
+        state = TrainState.create(dict(model.named_parameters()), tx)
+        step = make_train_step(model, build_loss(args), tx, nt, cfg,
+                               steps_per_epoch=1000)
+
+        def inputs():
+            idxs = torch.randint(0, n_img, (b,), generator=gen, device=dev)
+            return idxs, P.draw(gen, b, cfg, (H_SIZE, H_SIZE))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, _, _ = step(state, hr, lr, *inputs())
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        batches = [inputs() for _ in range(steps)]
+        reset_launches()
+        t0 = time.perf_counter()
+        for bt in batches:
+            state, holder, ok = step(state, hr, lr, *bt)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / steps
+        launches = read_launches()
+        rec = dict(model=f'{nt} x8 (config/net_defaults.py), bf16 over f32 '
+                   'params, random weights (seed 0)', batch=b,
+                   lr_patch=[PATCH, PATCH], steps=steps, ms_per_step=ms,
+                   patches_per_s=b * 1e3 / ms, first_step_seconds=first_s,
+                   max_memory_allocated=torch.cuda.max_memory_allocated(),
+                   n_params=sum(p.numel() for p in model.parameters()),
+                   loss=float(holder['total']), flags=float(holder['_flags']),
+                   launches=launches)
+        if nt in ZOO_PROFILED:
+            bt = inputs()
+            rec['profile'] = profile_device(
+                lambda: step(state, hr, lr, *bt), ms,
+                groups={'fft': ('fft',)} if nt == 'DFCAN' else None)
+        rec['ok'] = (bool(torch.isfinite(holder['total'])) and bool(ok)
+                     and all(v == 0 for v in launches.values()))
+        rec['nvidia_smi'] = smi
+        out[nt] = rec
+        ok_all = ok_all and rec['ok']
+        print(json.dumps({'zoo_train_net': nt, 'ok': rec['ok'],
+                          'ms_per_step': ms}), flush=True)
+        del model, state, step, tx
+        torch.cuda.empty_cache()
+    return out, ok_all
 
 
 # the README's training command (README.md:91-100) with only the dataset
@@ -1639,6 +2326,176 @@ def entry_phase(name, out_dir=None):
         rec['wall_seconds'] = time.perf_counter() - t_all
         rec['ok'] = ok
         return rec, ok
+
+
+# the README's training command for each zoo net: entry_x8's flags but
+# SwinIR's upsampler; 1 epoch of 2 steps at batch 64
+ZOO_ENTRY_FLAGS = [f for f in ENTRY['entry_x8']['flags']
+                   if f not in ('--swinir_upsampler', 'pixelshuffledirect')]
+ZOO_ENTRY = dict(scale=8, n_train=2 * ZOO_BATCH, n_val=4, n_test=4,
+                 epochs=1, steps=2, workers=4)
+
+
+def _zoo_entry_one(nt, tmp, data, names, out_dir):
+    """main then eval for one net in its own working directory; the
+    gates of entry_phase, with no kernel launch in any phase."""
+    import pickle
+    import shutil
+    from srcaco2_tpu_torch.train import checkpoint as CKPT
+    cfg = ZOO_ENTRY
+    cwd = os.path.join(tmp, nt)
+    os.makedirs(cwd)
+    rc_train, train_s = _run_entry(
+        ['srcaco2_tpu_torch.main', '--net_type', nt, '--scale',
+         str(cfg['scale']), '--n_channels', '1', '--train_dsets', names[0],
+         '--valid_dsets', names[1], '--test_dsets', names[2],
+         '--data_root', data, '--splits_root', data, *ZOO_ENTRY_FLAGS,
+         '--max_epochs', str(cfg['epochs']), '--checkpoint_eval', '1.0',
+         '--checkpoint_save', '1.0'], cwd, os.path.join(cwd, 'main.log'))
+    done = [os.path.join(d, 'passed.txt') for d, _, f in
+            os.walk(os.path.join(cwd, 'exps')) if 'passed.txt' in f]
+    exp = os.path.dirname(done[0]) if done else None
+    rc_eval, eval_s = (_run_entry(
+        ['srcaco2_tpu_torch.eval', '--exp_path', exp], cwd,
+        os.path.join(cwd, 'eval.log')) if exp else (None, 0.0))
+    rec = dict(main_rc=rc_train, main_seconds=train_s, eval_rc=rc_eval,
+               eval_seconds=eval_s, passed_txt=bool(done), exp=exp)
+    if out_dir:
+        dst = os.path.join(out_dir, 'entry_zoo', nt)
+        os.makedirs(dst, exist_ok=True)
+        for f in [os.path.join(cwd, 'main.log'),
+                  os.path.join(cwd, 'eval.log')] + (
+                      [os.path.join(exp, 'run_stats.json')] if exp else []):
+            if os.path.isfile(f):
+                shutil.copy(f, dst)
+    ok = rc_train == 0 and rc_eval == 0 and bool(done)
+    if ok:
+        with open(os.path.join(exp, 'tracker.pkl'), 'rb') as f:
+            tracker = pickle.load(f)
+        with open(os.path.join(exp, 'eval_test_test', 'tracker.pkl'),
+                  'rb') as f:
+            ev = pickle.load(f)
+        with open(os.path.join(exp, 'run_stats.json')) as f:
+            stats = json.load(f)
+        with open(os.path.join(exp, 'eval_test_test',
+                               'run_stats.json')) as f:
+            ev_stats = json.load(f)
+        val = tracker['val'][names[1]]['psnr']['vals']
+        test = {ds: {m: tracker['test'][ds][m]['vals'][-1:]
+                     for m in ('psnr', 'ssim')}
+                for ds in (names[2], names[2] + '_bicubic')}
+        rescored = {ds: {m: ev['test'][ds][m]['vals'][-1:]
+                         for m in ('psnr', 'ssim')} for ds in test}
+        same = all(len(test[ds][m]) == len(rescored[ds][m]) == 1
+                   and abs(test[ds][m][0] - rescored[ds][m][0]) <= 1e-6
+                   for ds in test for m in ('psnr', 'ssim'))
+        no_launch = all(v == 0 for st in (stats, ev_stats)
+                        for ph in st['launches'].values()
+                        for v in ph.values())
+        windows = stats['train_windows']
+        rec.update(
+            last_checkpoint=CKPT.find_last_checkpoint(exp),
+            best_model=os.path.isfile(os.path.join(exp, 'best-models',
+                                                   'G-model.pt')),
+            val_rows=len(val), test_rows=test, rescored=rescored,
+            eval_equals_final_test=same, train_steps=stats['train_steps'],
+            model_forwards=stats['model_forwards'],
+            launches=stats['launches'], no_kernel_launch=no_launch,
+            train_windows=windows,
+            train_max_memory_allocated=max(
+                (w.get('max_memory_allocated') or 0 for w in windows),
+                default=0))
+        ok = (rec['last_checkpoint'] == cfg['steps'] and rec['best_model']
+              and rec['train_steps'] == cfg['steps']
+              and len(val) >= cfg['epochs']
+              and all(test[ds]['psnr'] for ds in test) and same
+              and no_launch)
+    rec['ok'] = ok
+    return rec
+
+
+def entry_zoo(dev, out_dir=None):
+    """`python -m srcaco2_tpu_torch.main --net_type <NET>` with the
+    README's flags, then `python -m srcaco2_tpu_torch.eval`, for each zoo
+    net on one synthetic x8 dataset (128 / 4 / 4 images of 512^2; 1 epoch
+    of 2 steps at batch 64, a validation, the test), four nets at a time
+    on the card; the gates of entry_phase with no kernel launch. Then
+    SRCNN's best model served through SRServer on the card: 3 requests
+    (11 images: a batch of 8 and a ragged tail of 3 padded to 8; 8; the
+    same 8 again, bit for bit), uint8 out, and the tail request's pixels
+    against the same server on the CPU (the model computes in bf16, as
+    the experiment trained with amp: a different f32 sum order flips a
+    bf16 rounding, one uint8 level at outputs in [0.5, 1); 99% within 1
+    level, none more than 2 apart)."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    import numpy as np
+    import torch
+    from srcaco2_tpu_torch.data.synthetic import make_synthetic_dataset
+    from srcaco2_tpu_torch.inference.serve import SRServer
+    cfg = ZOO_ENTRY
+    t_all = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix='entry_zoo_') as tmp:
+        t0 = time.perf_counter()
+        data = os.path.join(tmp, 'data')
+        names = make_synthetic_dataset(
+            data, scale=cfg['scale'], cell='CELL0', n_train=cfg['n_train'],
+            n_val=cfg['n_val'], n_test=cfg['n_test'], size=512, seed=0,
+            style='blobs')
+        out['dataset'] = dict(names=names, seconds=time.perf_counter() - t0,
+                              n=[cfg['n_train'], cfg['n_val'],
+                                 cfg['n_test']])
+        with ThreadPoolExecutor(cfg['workers']) as pool:
+            futs = {nt: pool.submit(_zoo_entry_one, nt, tmp, data, names,
+                                    out_dir) for nt in ZOO}
+            nets = {nt: f.result() for nt, f in futs.items()}
+        out['nets'] = nets
+        ok = all(r['ok'] for r in nets.values())
+        if nets['SRCNN']['ok']:
+            exp = nets['SRCNN']['exp']
+            rng = np.random.default_rng(0)
+            req_a = rng.integers(0, 256, (11, 1, LR, LR), dtype=np.uint8)
+            req_b = rng.integers(0, 256, (BATCH, 1, LR, LR), dtype=np.uint8)
+            srv = SRServer(exp, batch_size=BATCH, lr_hw=(LR, LR),
+                           device=dev)
+            t0 = time.perf_counter()
+            out_a = srv(req_a)
+            out_b, out_c = srv(req_b), srv(req_b)
+            serve_s = time.perf_counter() - t0
+            cpu = SRServer(exp, batch_size=3, lr_hw=(LR, LR),
+                           device='cpu')(req_a[8:])
+            udiff = np.abs(cpu.astype(np.int16)
+                           - out_a[8:].astype(np.int16))
+            out['serve_srcnn'] = dict(
+                requests=[11, BATCH, BATCH], serve_seconds=serve_s,
+                setup_seconds=srv.setup_seconds,
+                images_per_s=srv.throughput(iters=5),
+                pre_upsampled=srv.pre_upsampled,
+                shapes_ok=(out_a.shape == (11, 1, LR * SCALE, LR * SCALE)
+                           and out_b.shape == (BATCH, 1, LR * SCALE,
+                                               LR * SCALE)
+                           and out_a.dtype == np.uint8),
+                deterministic=bool(np.array_equal(out_b, out_c)),
+                tail_vs_cpu_equal_share=float((udiff == 0).mean()),
+                tail_vs_cpu_within1_share=float((udiff <= 1).mean()),
+                tail_vs_cpu_max_diff=int(udiff.max()),
+                out_std=float(out_a.std()))
+            s = out['serve_srcnn']
+            s['ok'] = (s['shapes_ok'] and s['deterministic']
+                       and s['pre_upsampled']
+                       and s['tail_vs_cpu_within1_share'] >= 0.99
+                       and s['tail_vs_cpu_max_diff'] <= 2)
+            ok = ok and s['ok']
+            del srv
+        else:
+            ok = False
+        for r in nets.values():
+            r.pop('exp', None)
+    torch.cuda.empty_cache()
+    out['wall_seconds'] = time.perf_counter() - t_all
+    out['ok'] = ok
+    return out, ok
 
 
 def flagship_args():
@@ -1912,6 +2769,27 @@ def main() -> int:
             print(f'chip_smoke: {name} failed', file=sys.stderr)
             return 1
 
+    # the zoo: no kernel of K1-K6 on its paths (cuDNN, cuFFT, cuBLAS)
+    zoo = {}
+    for name, fn in (('zoo_check', lambda: zoo_check(dev)),
+                     ('zoo_train', lambda: zoo_train(dev, smi)),
+                     ('entry_zoo', lambda: entry_zoo(dev, out_dir))):
+        t0 = time.perf_counter()
+        rec, ok = fn()
+        rec['phase_seconds'] = time.perf_counter() - t0
+        zoo[name] = rec
+        if out_dir:
+            with open(os.path.join(out_dir, f'{name}.json'), 'w') as f:
+                json.dump(rec, f, indent=1)
+        # the line holds each check's verdict and worst value; the
+        # floored grads' details are in the record (--out-dir)
+        emit(name, **(_zoo_summary(rec) if name == 'zoo_check' else rec),
+             nvidia_smi=smi)
+        torch.cuda.empty_cache()
+        if not ok:
+            print(f'chip_smoke: {name} failed', file=sys.stderr)
+            return 1
+
     tpu = 'srcaco2_tpu/ops/pallas/swin_block.py'
     src = 'srcaco2_tpu_torch/ops/csrc'
     bf16_checks = [c for c in train_checks if c['dtype'] == 'bf16']
@@ -1993,7 +2871,7 @@ def main() -> int:
                        'kernel_time_wmsa': wmsa_times,
                        'eval_unfused': ev, 'eval_unfused_profile': ev_prof,
                        'windowed_check': windowed,
-                       'windowed_profile': wprof, **entries,
+                       'windowed_profile': wprof, **entries, **zoo,
                        'kernels': kernels}, f, indent=1)
     print(json.dumps({'kernels': kernels}))
     print(smi)

@@ -1,7 +1,23 @@
-"""flax SwinIR params -> the port's state_dict (the inverse direction of
-srcaco2_tpu/diagnosis/torch_port.py:port_swinir).
+"""flax params -> the port's state_dict (for SwinIR the inverse direction
+of srcaco2_tpu/diagnosis/torch_port.py:port_swinir).
 
-Leaves are matched by name, never by order:
+Leaves are matched by name, never by order. The zoo nets (every ported
+net but SwinIR) name their submodules after the flax auto-names, so one
+rule covers them: the flax path joined by dots, where
+  * the inner conv of the blocks' `Conv`, `StridedConv` and `ConvT`
+    wrappers (`.../Conv_0/kernel`, `.../ConvTranspose_0/kernel`) lands on
+    the wrapper itself, and an Upsampler's `Conv_<i>` on `convs.<i>`;
+  * conv kernels (kh, kw, I, O) become (O, I, kh, kw); transposed-conv
+    kernels (flax's nn.ConvTranspose, transpose_kernel=False) are flipped
+    in both spatial axes and become (I, O, kh, kw), the layout torch's
+    conv_transpose2d reads (models/blocks.py:ConvT);
+  * dense kernels keep flax's (in, out) layout, LayerNorm `scale`
+    becomes `weight`, PReLU's `negative_slope`, the relative position
+    bias tables and OmniSR's `temperature` keep their names;
+  * ENLCN's projection buffers (ENLCA.proj), which are no flax params
+    (JAX draws the matrix on every call), are filled from `projection`
+    when it is given.
+SwinIR's leaves:
   * conv kernels (kh, kw, I, O) become (O, I, kh, kw);
   * LayerNorm `scale` becomes `weight` (patch_norm, the final norm and
     the stacked block LNs ln1/ln2);
@@ -122,16 +138,59 @@ def _targets(path: Tuple[str, ...], value: np.ndarray):
     return None
 
 
-def flax_to_torch(params_np: Dict, model: nn.Module
-                  ) -> Dict[str, torch.Tensor]:
-    """Nested dict of numpy arrays (flax SwinIR, either block layout) ->
-    state_dict for `model` (f32 CPU tensors; load_state_dict moves them
-    to the model's device)."""
-    want = model.state_dict()
+_WRAPPED = ('Conv_0', 'ConvTranspose_0')
+
+
+def _zoo_targets(path: Tuple[str, ...], value: np.ndarray,
+                 model: nn.Module, want: Dict):
+    """[(port name, array)] of one flax leaf of a zoo net."""
+    from srcaco2_tpu_torch.models.blocks import ConvT
+    mods = list(path[:-1])
+    for j in range(len(mods) - 1):
+        if mods[j].startswith('Upsampler_') and \
+                re.fullmatch(r'Conv_\d+', mods[j + 1]):
+            mods[j + 1] = 'convs.' + mods[j + 1].split('_')[1]
+    leaf = _leaf_name(path[-1])
+    name = '.'.join(mods + [leaf])
+    if name not in want and mods and mods[-1] in _WRAPPED:
+        name = '.'.join(mods[:-1] + [leaf])
+    if value.ndim == 4:
+        owner = model.get_submodule(name.rpartition('.')[0]) \
+            if name in want else None
+        if isinstance(owner, ConvT):
+            value = value[::-1, ::-1].transpose(2, 3, 0, 1)
+        else:
+            value = _conv(value)
+    return [(name, value)]
+
+
+def flax_to_torch(params_np: Dict, model: nn.Module,
+                  projection=None) -> Dict[str, torch.Tensor]:
+    """Nested dict of numpy arrays (a flax param tree, or a tree of the
+    same structure: grads, optimizer moments) -> {name: tensor} for
+    `model`'s parameters (f32 CPU tensors; load_state_dict moves them
+    to the model's device), plus ENLCN's projection buffers filled from
+    `projection` (the (nb_features, C/4) matrix of
+    srcaco2_tpu/models/enlcn.py:gaussian_orthogonal_random_matrix) when
+    it is given."""
+    from srcaco2_tpu_torch.models.swinir import SwinIR
+    want = {k: v for k, v in model.named_parameters()}
     out = {}
+    if projection is not None:
+        proj = np.asarray(projection, np.float32)
+        for k, v in model.named_buffers():
+            if k == 'proj' or k.endswith('.proj'):
+                if tuple(proj.shape) != tuple(v.shape):
+                    raise ValueError(f'{k}: projection {proj.shape} vs '
+                                     f'model {tuple(v.shape)}')
+                want[k] = v
+                out[k] = torch.from_numpy(np.array(proj))
     for path, value in _flatten(params_np):
         value = np.asarray(value, np.float32)
-        targets = _targets(path, value)
+        if isinstance(model, SwinIR):
+            targets = _targets(path, value)
+        else:
+            targets = _zoo_targets(path, value, model, want)
         if targets is None:
             raise KeyError(f'unmapped flax param {"/".join(path)}')
         for name, a in targets:

@@ -1,6 +1,6 @@
-"""Per-network default hyper-parameters (the SwinIR branch of
-srcaco2_tpu/config/net_defaults.py:init_net_g), keyed as
-`<net_type_lower>_<param>` inside the `netG` sub-config."""
+"""Per-network default hyper-parameters (the branches of
+srcaco2_tpu/config/net_defaults.py:init_net_g for the ported nets),
+keyed as `<net_type_lower>_<param>` inside the `netG` sub-config."""
 from copy import deepcopy
 
 from srcaco2_tpu_torch import constants
@@ -10,26 +10,71 @@ def safe_str_var(s: str) -> str:
     return s.replace('-', '_').lower()
 
 
+def _swinir(args):
+    return dict(upscale=args['scale'], in_chans=args['n_channels'],
+                img_size=args['h_size'] // args['scale'], window_size=8,
+                img_range=1.0, depths=[6, 6, 6, 6, 6, 6], embed_dim=180,
+                num_heads=[6, 6, 6, 6, 6, 6], mlp_ratio=2,
+                upsampler=constants.US_PIXEL_SHUFFLE,
+                resi_connection=constants.R_CONNECTION_1CONV,
+                use_fused_blocks=True)
+
+
+def _act(args):
+    return dict(upscale=args['scale'], in_chans=args['n_channels'],
+                n_feats=64, img_range=1.0, n_resgroups=4, n_resblocks=12,
+                reduction=16, n_heads=8, n_layers=8, n_fusionblocks=4,
+                dropout_rate=0.0, token_size=3, expansion_ratio=4)
+
+
+def _enlcn(args):
+    return dict(upscale=args['scale'], in_chans=args['n_channels'],
+                n_resblock=32, n_feats=256, res_scale=0.1, img_range=1.0)
+
+
+def _srfbn(args):
+    return dict(upscale=args['scale'], in_chans=args['n_channels'],
+                num_features=64, num_steps=4, num_groups=6, use_cl=True)
+
+
+def _omnisr(args):
+    return dict(upscale=args['scale'], in_chans=args['n_channels'],
+                num_feat=64, res_num=5, bias=True, window_size=8,
+                block_num=4, pe=True, ffn_bias=True)
+
+
+def _upscale_in_chans(args):
+    return dict(upscale=args['scale'], in_chans=args['n_channels'])
+
+
+_DEFAULTS = {
+    constants.SWINIR: _swinir,
+    constants.ACT: _act,
+    constants.ENLCN: _enlcn,
+    constants.SRFBN: _srfbn,
+    constants.MSLAPSR: _upscale_in_chans,
+    constants.DFCAN: _upscale_in_chans,
+    constants.OMNISR: _omnisr,
+    constants.VDSR: _upscale_in_chans,
+    constants.SRCNN: lambda args: dict(in_chans=args['n_channels']),
+}
+
+# the nets define_g and init_net_g build
+PORTED_NETS = tuple(_DEFAULTS)
+
+
 def init_net_g(netG: dict, args: dict) -> dict:
-    """Fill the SwinIR defaults; other nets are not ported yet."""
+    """Fill the defaults of a ported net and the common init keys; the
+    other nets raise NotImplementedError."""
     out = deepcopy(netG)
     net_type = netG['net_type']
-    if net_type != constants.SWINIR:
+    if net_type not in _DEFAULTS:
         raise NotImplementedError(
-            f'{net_type}: only SwinIR is ported so far (see ROADMAP.md)')
+            f'{net_type}: not ported yet (ported: {", ".join(PORTED_NETS)};'
+            ' see ROADMAP.md)')
     nt = safe_str_var(net_type)
-    out[f'{nt}_upscale'] = args['scale']
-    out[f'{nt}_in_chans'] = args['n_channels']
-    out[f'{nt}_img_size'] = args['h_size'] // args['scale']
-    out[f'{nt}_window_size'] = 8
-    out[f'{nt}_img_range'] = 1.0
-    out[f'{nt}_depths'] = [6, 6, 6, 6, 6, 6]
-    out[f'{nt}_embed_dim'] = 180
-    out[f'{nt}_num_heads'] = [6, 6, 6, 6, 6, 6]
-    out[f'{nt}_mlp_ratio'] = 2
-    out[f'{nt}_upsampler'] = constants.US_PIXEL_SHUFFLE
-    out[f'{nt}_resi_connection'] = constants.R_CONNECTION_1CONV
-    out[f'{nt}_use_fused_blocks'] = True
+    for k, v in _DEFAULTS[net_type](args).items():
+        out[f'{nt}_{k}'] = v
     out[f'{nt}_init_type'] = constants.INIT_W_DEFAULT
     out[f'{nt}_init_bn_type'] = constants.INIT_BN_CONSTANT
     out[f'{nt}_init_gain'] = 1.

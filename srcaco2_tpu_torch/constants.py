@@ -9,11 +9,19 @@ REGRESSION = 'regression'
 
 SWINIR = 'SwinIR'
 SRCNN = 'SRCNN'
-# every net of the JAX zoo (only SwinIR is ported; config/net_defaults.py
-# raises for the others)
-MODELS = [SWINIR, 'DSRSplines', 'CSRCNN', 'DFCAN', SRCNN, 'VDSR', 'MemNet',
-          'DRRN', 'OmniSR', 'GRL', 'ENLCN', 'ACT', 'NLSN', 'EDSR_LIIF',
-          'SRFBN', 'DBPN', 'MSLapSRN', 'ProSR']
+VDSR = 'VDSR'
+DFCAN = 'DFCAN'
+MSLAPSR = 'MSLapSRN'
+SRFBN = 'SRFBN'
+ENLCN = 'ENLCN'
+ACT = 'ACT'
+OMNISR = 'OmniSR'
+PROSR = 'ProSR'
+# every net of the JAX zoo (config/net_defaults.py:PORTED_NETS lists the
+# ported ones and raises for the others)
+MODELS = [SWINIR, 'DSRSplines', 'CSRCNN', DFCAN, SRCNN, VDSR, 'MemNet',
+          'DRRN', OMNISR, 'GRL', ENLCN, ACT, 'NLSN', 'EDSR_LIIF',
+          SRFBN, 'DBPN', MSLAPSR, PROSR]
 NETTYPE_METHOD = {m: m for m in MODELS}
 INIT_W_DEFAULT = 'init_w_default'
 INIT_BN_CONSTANT = 'init_bn_constant'

@@ -43,7 +43,8 @@ def evaluate_pretrained(exp_path: str, split: str = constants.TESTSET,
     DLLogger.log(fmsg(f"eval {args['method']} x{args['scale']} "
                       f"({exp_path})"))
     exp = Experiment(args)
-    CKPT.copy_into(exp.state.params, CKPT.load_best(exp_path, exp.device))
+    CKPT.copy_into({**exp.state.params, **exp.buffers},
+                   CKPT.load_best(exp_path, exp.device))
     summary = exp.evaluate_test(step=0, use_best=True)
     T.save_tracker(exp.tracker, outd)
     T.save_tracker(exp.roi_tracker, outd, 'roi_tracker.pkl')

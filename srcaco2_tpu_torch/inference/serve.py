@@ -5,7 +5,9 @@ Fixed batch size and LR shape, uint8 in and out at the device boundary,
 optional test modes (train/test_modes.py), and a tail batch padded by
 repeating its last image so one shape serves any request size. PyTorch
 runs eagerly, so where the JAX server compiled ahead of time this one
-builds its kernels and runs one warm-up batch (`setup_seconds`).
+builds its kernels and runs one warm-up batch (`setup_seconds`). A
+pre-upsampling net (SRCNN) gets the bicubic pre-upscale of the LR batch,
+rounded to the uint8 grid as the data pipeline rounds it.
 """
 import time
 from typing import Optional, Tuple
@@ -13,8 +15,10 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from srcaco2_tpu_torch import resolve_device
+from srcaco2_tpu_torch import constants, resolve_device
+from srcaco2_tpu_torch.ops.resize import resize2d
 from srcaco2_tpu_torch.train import test_modes as TM
+from srcaco2_tpu_torch.train.steps import model_outputs
 
 
 class SRServer:
@@ -46,11 +50,16 @@ class SRServer:
             lr_hw = (s, s)
         self.lr_hw = tuple(lr_hw)
         self.in_shape = (self.args['n_channels'], *self.lr_hw)
+        self.pre_upsampled = (self.args['netG']['net_type']
+                              in constants.PRE_UPSAMPLED_INPUT_NETS)
         if self.device.type == 'cuda' and self.model.dtype == torch.float32:
             # f32 serving computes in full f32, as the JAX package does:
-            # left on, cuDNN would run the f32 convolutions in TF32.
+            # left on, cuDNN would run the f32 convolutions in TF32; and
+            # deterministically (an f32 transposed convolution otherwise
+            # sums with atomics)
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cudnn.deterministic = True
         t0 = time.perf_counter()
         self._serve(torch.zeros((batch_size, *self.in_shape),
                                 dtype=torch.uint8, device=self.device))
@@ -61,10 +70,18 @@ class SRServer:
         if self.device.type == 'cuda':
             torch.cuda.synchronize(self.device)
 
+    def _raw_fwd(self, l_im: torch.Tensor) -> torch.Tensor:
+        x = l_im
+        if self.pre_upsampled:
+            h, w = l_im.shape[-2:]
+            x = resize2d(l_im, (h * self.scale, w * self.scale))
+            x = torch.round(torch.clip(x, 0, 1) * 255.0) / 255.0
+        return model_outputs(self.model(x))['out']
+
     @torch.inference_mode()
     def _serve(self, lr_u8: torch.Tensor) -> torch.Tensor:
         l_im = lr_u8.float() / 255.0
-        out = TM.test_mode(self.model, l_im, mode=self.test_mode,
+        out = TM.test_mode(self._raw_fwd, l_im, mode=self.test_mode,
                            sf=self.scale)
         return torch.clip(torch.round(torch.clip(out, 0, 1) * 255.0),
                           0, 255).to(torch.uint8)

@@ -36,15 +36,19 @@ def ssim_train(img1: torch.Tensor, img2: torch.Tensor,
                window_size: int = 11) -> torch.Tensor:
     """Train-time SSIM (zero-padded SAME Gaussian window, per-sample
     mean) of the reference's loss/ssim.py. Inputs (B,C,H,W) in [0,1];
-    returns (B,). The separable Gaussian runs as two banded products."""
+    returns (B,). The separable Gaussian runs as two banded products; a
+    bf16 image is promoted to the f32 band's dtype there, as jnp.einsum
+    promotes it (the squares and products before it keep the inputs'
+    promoted dtype, as in JAX)."""
     h, w_ = img1.shape[2], img1.shape[3]
     dev = str(img1.device)
     kh = _gauss_band_on(h, window_size, dev)
     kw = _gauss_band_on(w_, window_size, dev)
 
     def conv(x):
-        y = torch.einsum('oh,bchw->bcow', kh, x)
-        return torch.einsum('ow,bchw->bcho', kw, y)
+        dt = torch.promote_types(kh.dtype, x.dtype)
+        y = torch.einsum('oh,bchw->bcow', kh.to(dt), x.to(dt))
+        return torch.einsum('ow,bchw->bcho', kw.to(dt), y)
 
     mu1 = conv(img1)
     mu2 = conv(img2)

@@ -2,8 +2,16 @@
 
 The JAX package computes convolutions in NHWC; the port keeps PyTorch's
 NCHW for them (cuDNN's layout) and holds parameters in PyTorch's
-layouts: conv weights (O, I, kh, kw). Parameters are f32; `dtype` is
-the compute dtype that inputs and weights are cast to, as flax does.
+layouts: conv weights (O, I, kh, kw), transposed-conv weights (I, O,
+kh, kw), dense weights in flax's (in, out). Parameters are f32; `dtype`
+is the compute dtype that inputs and weights are cast to, as flax does.
+
+Initializers are functions (weight, gen, fan_in, fan_out) drawing on the
+CPU from a torch.Generator from the distribution of the flax initializer
+of the same name; each module's `reset_parameters(gen)` draws its own
+parameters only (`reset_all` walks a model). `FlaxNamed` gives a
+module's children flax's auto-names, so that the port's state_dict
+mirrors the flax param tree (bridge.flax_to_torch).
 """
 import math
 
@@ -11,40 +19,136 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from srcaco2_tpu_torch.ops import resize as R
 
-class Conv(nn.Module):
-    """Square conv, stride 1, with torch-like 'SAME' padding
-    (k - 1) // 2 on every side. NCHW in and out, in `dtype`."""
+# flax's truncated normal: the standard normal cut at +-2, divided by its
+# own standard deviation there (jax.nn.initializers.variance_scaling)
+_TRUNC_STD = 0.87962566103423978
 
-    def __init__(self, in_ch: int, out_ch: int, kernel: int = 3, *,
-                 dtype=torch.float32, device=None):
-        super().__init__()
-        self.pad = (kernel - 1) // 2
-        self.dtype = dtype
-        self.weight = nn.Parameter(torch.empty(
-            out_ch, in_ch, kernel, kernel, device=device))
-        self.bias = nn.Parameter(torch.zeros(out_ch, device=device))
 
-    def reset_parameters(self, gen: torch.Generator):
-        """flax's variance_scaling(1, fan_in, uniform) kernel (torch's
-        Conv2d default family) and zero bias."""
-        fan_in = self.weight[0].numel()
-        bound = math.sqrt(3.0 / fan_in)
-        _uniform_(self.weight, -bound, bound, gen)
-        nn.init.zeros_(self.bias)
-
-    def forward(self, x):
-        # flax's two rounding points: the convolution rounds to the
-        # compute dtype, then the bias is added in that dtype
-        y = F.conv2d(x.to(self.dtype), self.weight.to(self.dtype),
-                     padding=self.pad)
-        return y + self.bias.to(self.dtype)[:, None, None]
+def _trunc_normal_std_(p: torch.Tensor, std: float, gen: torch.Generator):
+    with torch.no_grad():
+        t = torch.empty(p.shape)
+        nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+        p.copy_(t * (std / _TRUNC_STD))
 
 
 def _uniform_(p: torch.Tensor, lo: float, hi: float,
               gen: torch.Generator):
     with torch.no_grad():
         p.copy_(torch.rand(p.shape, generator=gen) * (hi - lo) + lo)
+
+
+def uniform_fan_in(p, gen, fan_in, fan_out):
+    """variance_scaling(1, 'fan_in', 'uniform'): the blocks' `Conv` and
+    `ConvT` default (torch's Conv2d family)."""
+    del fan_out
+    bound = math.sqrt(3.0 / fan_in)
+    _uniform_(p, -bound, bound, gen)
+
+
+def lecun_normal(p, gen, fan_in, fan_out):
+    """variance_scaling(1, 'fan_in', 'truncated_normal'): flax's default
+    for nn.Conv, nn.Dense and nn.ConvTranspose."""
+    del fan_out
+    _trunc_normal_std_(p, math.sqrt(1.0 / fan_in), gen)
+
+
+def kaiming_fan_out(p, gen, fan_in, fan_out):
+    """variance_scaling(2, 'fan_out', 'truncated_normal') (VDSR)."""
+    del fan_in
+    _trunc_normal_std_(p, math.sqrt(2.0 / fan_out), gen)
+
+
+def normal(std: float):
+    """nn.initializers.normal(stddev=std)."""
+    def init(p, gen, fan_in, fan_out):
+        del fan_in, fan_out
+        with torch.no_grad():
+            p.copy_(torch.randn(p.shape, generator=gen) * std)
+    return init
+
+
+def bilinear_upsample_init(size: int):
+    """The bilinear filter of srcaco2_tpu/models/blocks.py:
+    bilinear_upsample_init (MSLapSRN's get_upsample_filter): every
+    (in, out) channel pair gets the same 2D filter. The filter is
+    symmetric, so the flip between the flax and the torch layouts of a
+    transposed-conv kernel leaves it in place."""
+    factor = (size + 1) // 2
+    center = factor - 1 if size % 2 == 1 else factor - 0.5
+    f1 = 1.0 - torch.abs(torch.arange(size, dtype=torch.float32)
+                         - center) / factor
+    filt = f1[:, None] * f1[None, :]
+
+    def init(p, gen, fan_in, fan_out):
+        del gen, fan_in, fan_out
+        assert tuple(p.shape[-2:]) == (size, size), (p.shape, size)
+        with torch.no_grad():
+            p.copy_(filt.expand(p.shape))
+    return init
+
+
+def stat_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype the flax modules take statistics in (LayerNorm, a
+    softmax's sum, DFCAN's Fourier magnitude): f32 under a 16-bit or f32
+    compute dtype. It follows a float64 compute dtype only for
+    chip_smoke.py's zoo_check, which re-runs a training step with every
+    module in float64 as its reference; training never does."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+def _convolve(conv, x, w, dtype, **kw):
+    """conv (F.conv2d or F.conv_transpose2d) of x and w cast to `dtype`.
+    oneDNN's bf16 convolution on the CPU returns wrong values for some
+    shapes (8x8 and 12x12 kernels over 8 input channels, PyTorch 2.13),
+    in a convolution's forward and in a transposed one's backward: on the
+    CPU a bf16 convolution runs as the f32 convolution of the bf16
+    operands (exact products, f32 sums) rounded once, which is what a
+    bf16 convolution computes, and its backward in f32 too."""
+    x, w = x.to(dtype), w.to(dtype)
+    if x.device.type == 'cpu' and dtype == torch.bfloat16:
+        return conv(x.float(), w.float(), **kw).to(dtype)
+    return conv(x, w, **kw)
+
+
+class Conv(nn.Module):
+    """Square conv (flax nn.Conv with explicit symmetric padding, the
+    blocks' `Conv` / `StridedConv` wrappers): stride, padding (default
+    torch-like 'SAME', (k - 1) // 2), groups (feature_group_count) and an
+    optional bias. NCHW in and out, in `dtype`. `init` defaults to the
+    `Conv` wrapper's kernel init; a raw nn.Conv takes lecun_normal."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int = 3, *,
+                 stride: int = 1, padding: int = None, groups: int = 1,
+                 bias: bool = True, init=uniform_fan_in,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        self.pad = (kernel - 1) // 2 if padding is None else padding
+        self.stride, self.groups, self.init = stride, groups, init
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(
+            out_ch, in_ch // groups, kernel, kernel, device=device))
+        self.bias = nn.Parameter(torch.zeros(out_ch, device=device)) \
+            if bias else None
+
+    def reset_parameters(self, gen: torch.Generator):
+        """`init` over the kernel (fans as flax counts them from its
+        (kh, kw, I/groups, O) kernel) and a zero bias."""
+        o, i, kh, kw = self.weight.shape
+        self.init(self.weight, gen, i * kh * kw, o * kh * kw)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+    def forward(self, x):
+        # flax's two rounding points: the convolution rounds to the
+        # compute dtype, then the bias is added in that dtype
+        y = _convolve(F.conv2d, x, self.weight, self.dtype,
+                      stride=self.stride, padding=self.pad,
+                      groups=self.groups)
+        if self.bias is None:
+            return y
+        return y + self.bias.to(self.dtype)[:, None, None]
 
 
 def pixel_shuffle(x: torch.Tensor, factor: int) -> torch.Tensor:
@@ -94,3 +198,182 @@ class UpsamplerDirect(nn.Module):
 
     def forward(self, x):
         return pixel_shuffle(self.conv(x), self.scale)
+
+
+class ConvT(nn.Module):
+    """The blocks' `ConvT` (torch ConvTranspose2d semantics): flax's
+    nn.ConvTranspose(padding='VALID', transpose_kernel=False), then the
+    crop of `padding` top / left and `padding - output_padding` bottom /
+    right, which is torch's conv_transpose2d with that padding and
+    output_padding. flax correlates the stride-dilated input with its
+    (kh, kw, I, O) kernel as stored, torch's transposed convolution with
+    the kernel flipped: the weight here is flax's kernel flipped in both
+    spatial axes and laid out (I, O, kh, kw) (bridge.flax_to_torch does
+    both)."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int,
+                 padding: int, output_padding: int = 0, *,
+                 bias: bool = True, init=uniform_fan_in,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        assert padding - output_padding >= 0, (padding, output_padding)
+        self.stride, self.pad, self.out_pad = stride, padding, output_padding
+        self.init, self.dtype = init, dtype
+        self.weight = nn.Parameter(torch.empty(
+            in_ch, out_ch, kernel, kernel, device=device))
+        self.bias = nn.Parameter(torch.zeros(out_ch, device=device)) \
+            if bias else None
+
+    def reset_parameters(self, gen: torch.Generator):
+        i, o, kh, kw = self.weight.shape
+        self.init(self.weight, gen, i * kh * kw, o * kh * kw)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+    def forward(self, x):
+        y = _convolve(F.conv_transpose2d, x, self.weight, self.dtype,
+                      stride=self.stride, padding=self.pad,
+                      output_padding=self.out_pad)
+        if self.bias is None:
+            return y
+        return y + self.bias.to(self.dtype)[:, None, None]
+
+
+class Dense(nn.Module):
+    """flax nn.Dense(dtype=dtype) with its default (lecun_normal) kernel
+    init: input and weight cast to the compute dtype, the product in it,
+    then the bias added in it. The weight keeps flax's (in, out) layout:
+    y = x @ weight + bias."""
+
+    def __init__(self, in_features: int, out_features: int, *,
+                 bias: bool = True, init=lecun_normal,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        self.init, self.dtype = init, dtype
+        self.weight = nn.Parameter(torch.zeros(in_features, out_features,
+                                               device=device))
+        self.bias = nn.Parameter(torch.zeros(out_features, device=device)) \
+            if bias else None
+
+    def reset_parameters(self, gen: torch.Generator):
+        self.init(self.weight, gen, *self.weight.shape)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+    def forward(self, x):
+        y = torch.matmul(x.to(self.dtype), self.weight.to(self.dtype))
+        return y if self.bias is None else y + self.bias.to(self.dtype)
+
+
+class PReLU(nn.Module):
+    """flax nn.PReLU: one learned slope (init 0.01) for every channel."""
+
+    def __init__(self, *, device=None):
+        super().__init__()
+        self.negative_slope = nn.Parameter(torch.full((), 0.01,
+                                                      device=device))
+
+    def reset_parameters(self, gen: torch.Generator):
+        del gen
+        nn.init.constant_(self.negative_slope, 0.01)
+
+    def forward(self, x):
+        return torch.where(x >= 0, x, self.negative_slope.to(x.dtype) * x)
+
+
+class MeanShift(nn.Module):
+    """Subtract / add a fixed channel mean scaled by img_range (EDSR-family
+    preprocessing); NCHW."""
+
+    def __init__(self, rgb_mean, sign: float = -1.0, img_range: float = 1.0):
+        super().__init__()
+        self.rgb_mean, self.sign, self.img_range = rgb_mean, sign, img_range
+
+    def forward(self, x):
+        mean = torch.as_tensor(self.rgb_mean, dtype=x.dtype,
+                               device=x.device) * self.img_range
+        return x + self.sign * mean[:, None, None]
+
+
+class FlaxNamed(nn.Module):
+    """A module whose children are registered under flax's auto-names:
+    `<Class>_<n>`, one counter per class name in creation order (flax's
+    `Conv` wrapper and a raw nn.Conv share the name "Conv"; a child flax
+    names explicitly takes no number: add_module it). Build the children
+    in the order the flax module creates them in its compact __call__
+    (an outer call's module before the inner call's:
+    `Conv(...)(relu(Conv(...)(y)))` names the outer Conv first)."""
+
+    def __init__(self):
+        super().__init__()
+        self._counts = {}
+
+    def child(self, kind: str, module: nn.Module) -> nn.Module:
+        n = self._counts.get(kind, 0)
+        self._counts[kind] = n + 1
+        self.add_module(f'{kind}_{n}', module)
+        return module
+
+
+class ResBlock(nn.Module):
+    """conv-relu-conv with residual scaling (EDSR-style), NCHW."""
+
+    def __init__(self, features: int, kernel: int = 3,
+                 res_scale: float = 1.0, bias: bool = True, *,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        kw = dict(bias=bias, dtype=dtype, device=device)
+        self.Conv_0 = Conv(features, features, kernel, **kw)
+        self.Conv_1 = Conv(features, features, kernel, **kw)
+        self.res_scale = res_scale
+
+    def forward(self, x):
+        h = self.Conv_1(F.relu(self.Conv_0(x)))
+        return x + h * self.res_scale
+
+
+class ConvReLU(nn.Module):
+    def __init__(self, in_ch: int, features: int, kernel: int = 3,
+                 bias: bool = True, *, dtype=torch.float32, device=None):
+        super().__init__()
+        self.Conv_0 = Conv(in_ch, features, kernel, bias=bias, dtype=dtype,
+                           device=device)
+
+    def forward(self, x):
+        return F.relu(self.Conv_0(x))
+
+
+def raw_conv(in_ch: int, out_ch: int, kernel: int, *, stride: int = 1,
+             padding: int = None, groups: int = 1, bias: bool = True,
+             dtype=torch.float32, device=None) -> Conv:
+    """A raw flax nn.Conv (lecun_normal kernel) with symmetric padding,
+    'SAME'-style by default: the blocks' `StridedConv` and the depthwise
+    and strided convs the zoo writes with nn.Conv."""
+    return Conv(in_ch, out_ch, kernel, stride=stride, padding=padding,
+                groups=groups, bias=bias, init=lecun_normal, dtype=dtype,
+                device=device)
+
+
+def bicubic_up(x: torch.Tensor, scale: int, clip: bool = True):
+    """Internal bicubic pre-upsampling of VDSR / DRRN / MemNet (torch
+    F.interpolate's bicubic, no antialias) on NCHW."""
+    h, w = x.shape[-2], x.shape[-1]
+    y = R.resize2d(x, (h * scale, w * scale))
+    return torch.clip(y, 0.0, 1.0) if clip else y
+
+
+def reset_all(model: nn.Module, gen: torch.Generator) -> nn.Module:
+    """Seeded init of every submodule that has parameters of its own, in
+    module order."""
+    for m in model.modules():
+        if m is not model and hasattr(m, 'reset_parameters'):
+            m.reset_parameters(gen)
+    return model
+
+
+def to_nhwc(x):
+    return x.permute(0, 2, 3, 1)
+
+
+def to_nchw(x):
+    return x.permute(0, 3, 1, 2)

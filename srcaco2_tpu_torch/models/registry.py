@@ -1,14 +1,107 @@
-"""Network factory (port of srcaco2_tpu/models/registry.py:define_g).
-Only SwinIR is ported; every other net raises NotImplementedError."""
+"""Network factory (port of srcaco2_tpu/models/registry.py:define_g) for
+the ported nets (config/net_defaults.py:PORTED_NETS); every other net
+raises NotImplementedError."""
 import torch
 import torch.nn as nn
 
 from srcaco2_tpu_torch import constants, resolve_device
-from srcaco2_tpu_torch.config.net_defaults import safe_str_var
+from srcaco2_tpu_torch.config.net_defaults import PORTED_NETS, safe_str_var
 
 
 def _p(netG: dict, nt: str, key: str):
     return netG[f'{safe_str_var(nt)}_{key}']
+
+
+def _swinir(netG, nt, kw):
+    from srcaco2_tpu_torch.models.swinir import SwinIR
+    return SwinIR(in_chans=_p(netG, nt, 'in_chans'),
+                  upscale=_p(netG, nt, 'upscale'),
+                  img_range=_p(netG, nt, 'img_range'),
+                  window_size=_p(netG, nt, 'window_size'),
+                  embed_dim=_p(netG, nt, 'embed_dim'),
+                  depths=tuple(_p(netG, nt, 'depths')),
+                  num_heads=tuple(_p(netG, nt, 'num_heads')),
+                  mlp_ratio=float(_p(netG, nt, 'mlp_ratio')),
+                  upsampler=_p(netG, nt, 'upsampler'),
+                  resi_connection=_p(netG, nt, 'resi_connection'),
+                  fused_blocks=bool(netG.get(
+                      f'{safe_str_var(nt)}_use_fused_blocks', False)), **kw)
+
+
+def _srcnn(netG, nt, kw):
+    from srcaco2_tpu_torch.models.cnn_pre import SRCNN
+    return SRCNN(in_chans=_p(netG, nt, 'in_chans'), **kw)
+
+
+def _vdsr(netG, nt, kw):
+    from srcaco2_tpu_torch.models.cnn_pre import VDSR
+    return VDSR(in_chans=_p(netG, nt, 'in_chans'),
+                upscale=_p(netG, nt, 'upscale'), **kw)
+
+
+def _dfcan(netG, nt, kw):
+    from srcaco2_tpu_torch.models.dfcan import DFCAN
+    return DFCAN(in_chans=_p(netG, nt, 'in_chans'),
+                 upscale=_p(netG, nt, 'upscale'), **kw)
+
+
+def _enlcn(netG, nt, kw):
+    from srcaco2_tpu_torch.models.enlcn import ENLCN
+    return ENLCN(in_chans=_p(netG, nt, 'in_chans'),
+                 upscale=_p(netG, nt, 'upscale'),
+                 n_resblocks=_p(netG, nt, 'n_resblock'),
+                 n_feats=_p(netG, nt, 'n_feats'),
+                 res_scale=_p(netG, nt, 'res_scale'), **kw)
+
+
+def _omnisr(netG, nt, kw):
+    from srcaco2_tpu_torch.models.omnisr import OmniSR
+    return OmniSR(in_chans=_p(netG, nt, 'in_chans'),
+                  upscale=_p(netG, nt, 'upscale'),
+                  num_feat=_p(netG, nt, 'num_feat'),
+                  res_num=_p(netG, nt, 'res_num'),
+                  block_num=_p(netG, nt, 'block_num'),
+                  window_size=_p(netG, nt, 'window_size'),
+                  pe=_p(netG, nt, 'pe'), bias=_p(netG, nt, 'bias'),
+                  ffn_bias=_p(netG, nt, 'ffn_bias'), **kw)
+
+
+def _srfbn(netG, nt, kw):
+    from srcaco2_tpu_torch.models.srfbn import SRFBN
+    return SRFBN(in_chans=_p(netG, nt, 'in_chans'),
+                 upscale=_p(netG, nt, 'upscale'),
+                 num_features=_p(netG, nt, 'num_features'),
+                 num_steps=_p(netG, nt, 'num_steps'),
+                 num_groups=_p(netG, nt, 'num_groups'), **kw)
+
+
+def _mslapsr(netG, nt, kw):
+    from srcaco2_tpu_torch.models.mslapsr import MSLapSRN
+    return MSLapSRN(in_chans=_p(netG, nt, 'in_chans'),
+                    upscale=_p(netG, nt, 'upscale'), **kw)
+
+
+def _act(netG, nt, kw):
+    from srcaco2_tpu_torch.models.act import ACT
+    return ACT(in_chans=_p(netG, nt, 'in_chans'),
+               upscale=_p(netG, nt, 'upscale'),
+               n_feats=_p(netG, nt, 'n_feats'),
+               n_resgroups=_p(netG, nt, 'n_resgroups'),
+               n_resblocks=_p(netG, nt, 'n_resblocks'),
+               reduction=_p(netG, nt, 'reduction'),
+               n_heads=_p(netG, nt, 'n_heads'),
+               n_layers=_p(netG, nt, 'n_layers'),
+               n_fusionblocks=_p(netG, nt, 'n_fusionblocks'),
+               token_size=_p(netG, nt, 'token_size'),
+               expansion_ratio=_p(netG, nt, 'expansion_ratio'), **kw)
+
+
+_BUILD = {constants.SWINIR: _swinir, constants.SRCNN: _srcnn,
+          constants.VDSR: _vdsr, constants.DFCAN: _dfcan,
+          constants.ENLCN: _enlcn, constants.OMNISR: _omnisr,
+          constants.SRFBN: _srfbn, constants.MSLAPSR: _mslapsr,
+          constants.ACT: _act}
+assert set(_BUILD) == set(PORTED_NETS)
 
 
 def define_g(args: dict, device=None, seed: int = 0) -> nn.Module:
@@ -20,23 +113,12 @@ def define_g(args: dict, device=None, seed: int = 0) -> nn.Module:
     (use_pallas_attn=False), as JAX's define_g builds it."""
     netG = args['netG']
     nt = netG['net_type']
-    dtype = torch.bfloat16 if args.get('amp', False) else torch.float32
-    if nt != constants.SWINIR:
+    if nt not in _BUILD:
         raise NotImplementedError(
-            f'{nt}: only SwinIR is ported so far (see ROADMAP.md)')
-    from srcaco2_tpu_torch.models.swinir import SwinIR
-    model = SwinIR(in_chans=_p(netG, nt, 'in_chans'),
-                   upscale=_p(netG, nt, 'upscale'),
-                   img_range=_p(netG, nt, 'img_range'),
-                   window_size=_p(netG, nt, 'window_size'),
-                   embed_dim=_p(netG, nt, 'embed_dim'),
-                   depths=tuple(_p(netG, nt, 'depths')),
-                   num_heads=tuple(_p(netG, nt, 'num_heads')),
-                   mlp_ratio=float(_p(netG, nt, 'mlp_ratio')),
-                   upsampler=_p(netG, nt, 'upsampler'),
-                   resi_connection=_p(netG, nt, 'resi_connection'),
-                   fused_blocks=bool(netG.get(
-                       f'{safe_str_var(nt)}_use_fused_blocks', False)),
-                   dtype=dtype, device=resolve_device(device))
+            f'{nt}: not ported yet (ported: {", ".join(PORTED_NETS)}; see '
+            'ROADMAP.md)')
+    dtype = torch.bfloat16 if args.get('amp', False) else torch.float32
+    model = _BUILD[nt](netG, nt, dict(dtype=dtype,
+                                      device=resolve_device(device)))
     model.reset_parameters(torch.Generator().manual_seed(seed))
     return model.eval()

@@ -38,6 +38,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from srcaco2_tpu_torch import constants
+from srcaco2_tpu_torch.models import blocks
 from srcaco2_tpu_torch.models.blocks import Conv, Upsampler, UpsamplerDirect
 from srcaco2_tpu_torch.ops.swin_block import LN_EPS, _const
 from srcaco2_tpu_torch.ops.window_attention import window_attention
@@ -84,11 +85,13 @@ def shift_attn_mask(h: int, w: int, ws: int, shift: int) -> np.ndarray:
 
 class LayerNorm(nn.Module):
     """LayerNorm over the last axis: statistics in f32, output in dtype
-    (flax nn.LayerNorm(epsilon=1e-5, dtype=dtype))."""
+    (flax nn.LayerNorm(epsilon=eps, dtype=dtype); SwinIR's eps is 1e-5,
+    flax's default 1e-6)."""
 
-    def __init__(self, dim: int, *, dtype=torch.float32, device=None):
+    def __init__(self, dim: int, *, eps: float = LN_EPS,
+                 dtype=torch.float32, device=None):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.eps = dtype, eps
         self.weight = nn.Parameter(torch.ones(dim, device=device))
         self.bias = nn.Parameter(torch.zeros(dim, device=device))
 
@@ -98,8 +101,9 @@ class LayerNorm(nn.Module):
         nn.init.zeros_(self.bias)
 
     def forward(self, x):
-        return F.layer_norm(x.float(), self.weight.shape, self.weight,
-                            self.bias, LN_EPS).to(self.dtype)
+        x = x.to(blocks.stat_dtype(x.dtype))
+        return F.layer_norm(x, self.weight.shape, self.weight.to(x.dtype),
+                            self.bias.to(x.dtype), self.eps).to(self.dtype)
 
 
 def _trunc_normal_(p: torch.Tensor, std: float, gen: torch.Generator):
@@ -116,29 +120,19 @@ def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a, b)
 
 
-class Dense(nn.Module):
-    """flax nn.Dense(dtype=dtype): input and weight cast to the compute
-    dtype, the product in it, then the bias added in it. The weight keeps
-    the flax (in, out) layout: y = x @ weight + bias."""
+def _swin_dense_init(p, gen, fan_in, fan_out):
+    """Truncated-normal dense kernel, std 1/sqrt(fan_in), cut at 2 std (as
+    FusedBlockStack draws its dense kernels)."""
+    del fan_out
+    _trunc_normal_(p, 1.0 / math.sqrt(fan_in), gen)
 
-    def __init__(self, in_features: int, out_features: int, *,
-                 dtype=torch.float32, device=None):
-        super().__init__()
-        self.dtype = dtype
-        self.weight = nn.Parameter(torch.zeros(in_features, out_features,
-                                               device=device))
-        self.bias = nn.Parameter(torch.zeros(out_features, device=device))
 
-    def reset_parameters(self, gen: torch.Generator):
-        """Truncated-normal weight (std 1/sqrt(fan_in), as FusedBlockStack
-        draws its dense kernels), zero bias."""
-        _trunc_normal_(self.weight, 1.0 / math.sqrt(self.weight.shape[0]),
-                       gen)
-        nn.init.zeros_(self.bias)
-
-    def forward(self, x):
-        return (_mm(x.to(self.dtype), self.weight.to(self.dtype))
-                + self.bias.to(self.dtype))
+def Dense(in_features: int, out_features: int, *, dtype=torch.float32,
+          device=None) -> blocks.Dense:
+    """flax nn.Dense(dtype=dtype) with SwinIR's kernel init; the weight
+    keeps the flax (in, out) layout: y = x @ weight + bias."""
+    return blocks.Dense(in_features, out_features, init=_swin_dense_init,
+                        dtype=dtype, device=device)
 
 
 def _flax_gelu(u: torch.Tensor) -> torch.Tensor:
@@ -154,16 +148,20 @@ def _flax_gelu(u: torch.Tensor) -> torch.Tensor:
 
 def _softmax(x: torch.Tensor) -> torch.Tensor:
     """jax.nn.softmax over the last axis in x's dtype: exp(x - max)
-    rounded to the dtype, its sum in f32 (jnp.sum upcasts) rounded to the
-    dtype, then the division."""
+    rounded to the dtype, its sum in f32 (jnp.sum upcasts; blocks.stat_dtype)
+    rounded to the dtype, then the division."""
     e = torch.exp(x - x.amax(-1, keepdim=True))
-    return e / e.float().sum(-1, keepdim=True).to(x.dtype)
+    return e / e.to(blocks.stat_dtype(e.dtype)).sum(-1, keepdim=True).to(
+        x.dtype)
 
 
 @functools.lru_cache(maxsize=None)
 def _rel_index_on(ws: int, device: str) -> torch.Tensor:
-    return torch.as_tensor(relative_position_index(ws).reshape(-1),
-                           dtype=torch.long).to(device)
+    """The flat relative position index on `device`, a normal tensor even
+    when first built under inference_mode (training reuses it)."""
+    with torch.inference_mode(False):
+        return torch.as_tensor(relative_position_index(ws).reshape(-1),
+                               dtype=torch.long).to(device)
 
 
 @functools.lru_cache(maxsize=64)

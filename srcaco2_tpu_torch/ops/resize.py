@@ -124,10 +124,14 @@ def resize_weights(in_size: int, out_size: int, method: str = TORCH_BICUBIC,
 @functools.lru_cache(maxsize=64)
 def _weights_on(in_size, out_size, method, antialias, align_corners,
                 dtype, device):
-    """resize_weights as a tensor on `device`, copied there once."""
-    return torch.as_tensor(resize_weights(in_size, out_size, method,
-                                          antialias, align_corners)
-                           ).to(device=device, dtype=dtype)
+    """resize_weights as a tensor on `device`, copied there once; a
+    normal tensor even when first asked for under inference_mode (an
+    eval forward), since a resize inside a trained network (SRFBN,
+    OmniSR's ESA) saves it for its backward."""
+    with torch.inference_mode(False):
+        return torch.as_tensor(resize_weights(
+            in_size, out_size, method, antialias, align_corners)
+        ).to(device=device, dtype=dtype)
 
 
 def resize2d(x: torch.Tensor, out_hw, method: str = TORCH_BICUBIC,

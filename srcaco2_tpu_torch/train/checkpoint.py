@@ -3,11 +3,13 @@ srcaco2_tpu/train/checkpoint.py).
 
 The JAX package's directory layout, with one `.pt` file in place of each
 orbax directory:
-  <exp>/models/<step>_G.pt            parameters (a state_dict)
+  <exp>/models/<step>_G.pt            parameters and persistent buffers
+                                      (a state_dict)
   <exp>/models/<step>_optimizerG.pt   {'opt_state', 'step', 'elb_t'}
   <exp>/models/<step>_E.pt            EMA parameters (E_decay > 0)
-  <exp>/best-models/G-model.pt        best parameters (one validation
-                                      set; G-<ds>.pt with several)
+  <exp>/best-models/G-model.pt        best parameters and buffers (one
+                                      validation set; G-<ds>.pt with
+                                      several)
 `inference/super_res.load_exp` reads best-models/G-model.pt. Resume
 finds the largest saved step; GC keeps only the latest. Orbax
 checkpoints of the JAX package need jax and are not read here.
@@ -55,11 +57,15 @@ def copy_into(dst: Tensors, src: Tensors) -> None:
             t.copy_(src[k])
 
 
-def save_checkpoint(exp_dir: str, state: TrainState):
+def save_checkpoint(exp_dir: str, state: TrainState,
+                    buffers: Optional[Tensors] = None):
+    """The step's params (with the model's persistent `buffers`), the
+    optimizer state and the EMA."""
     step = int(state.step)
     md = _models_dir(exp_dir)
     os.makedirs(md, exist_ok=True)
-    _save(_detached(state.params), os.path.join(md, f'{step}_G.pt'))
+    _save(_detached({**state.params, **(buffers or {})}),
+          os.path.join(md, f'{step}_G.pt'))
     _save({'opt_state': state.opt_state, 'step': state.step,
            'elb_t': state.elb_t}, os.path.join(md, f'{step}_optimizerG.pt'))
     if state.ema_params is not None:
@@ -78,16 +84,19 @@ def find_last_checkpoint(exp_dir: str) -> int:
 
 def load_checkpoint(exp_dir: str, state: TrainState,
                     step: Optional[int] = None,
-                    load_optimizer: bool = True) -> Tuple[TrainState, int]:
-    """Restore the params (and the optimizer state, the step and elb_t)
-    saved at `step` (default: the latest) into `state`, in place for the
-    params and the EMA."""
+                    load_optimizer: bool = True,
+                    buffers: Optional[Tensors] = None
+                    ) -> Tuple[TrainState, int]:
+    """Restore the params and `buffers` (and the optimizer state, the
+    step and elb_t) saved at `step` (default: the latest) into `state`,
+    in place for the params, the buffers and the EMA."""
     step = step if step is not None else find_last_checkpoint(exp_dir)
     if step <= 0:
         return state, 0
     md = _models_dir(exp_dir)
     dev = state.step.device
-    copy_into(state.params, _load(os.path.join(md, f'{step}_G.pt'), dev))
+    copy_into({**state.params, **(buffers or {})},
+              _load(os.path.join(md, f'{step}_G.pt'), dev))
     opt_path = os.path.join(md, f'{step}_optimizerG.pt')
     if load_optimizer and os.path.isfile(opt_path):
         aux = _load(opt_path, dev)

@@ -16,7 +16,16 @@ import torch
 from srcaco2_tpu_torch import constants
 from srcaco2_tpu_torch.data import pipeline as P
 from srcaco2_tpu_torch.losses.master import MasterLoss
+from srcaco2_tpu_torch.ops.resize import resize2d
 from srcaco2_tpu_torch.train.state import TrainState, all_finite, ema_update
+
+
+def model_outputs(raw) -> dict:
+    """A model's return as the JAX nets' outputs dict ('out', and
+    'x_interp' / 'global_residual' / 'intermediate_outs' where the net
+    has them): the zoo's dicts as they are, SwinIR's tensor under
+    'out'."""
+    return raw if isinstance(raw, dict) else {'out': raw}
 
 
 def net_input(net_type: str, batch: dict, netG: dict = None) -> torch.Tensor:
@@ -33,14 +42,41 @@ def net_input(net_type: str, batch: dict, netG: dict = None) -> torch.Tensor:
 
 def compute_model_loss(net_type: str, master: MasterLoss, outputs: dict,
                        batch: dict, params, epoch, elb_t):
-    """The loss of a model with one output. The curriculum and
-    progressive nets' per-level losses (intermediate outputs) are not
-    ported yet."""
-    if outputs.get('intermediate_outs') is not None:
-        raise NotImplementedError(
-            f'{net_type}: losses over intermediate outputs are not ported '
-            'yet (see ROADMAP.md)')
-    return master(outputs, batch, params, epoch, elb_t)
+    """The per-net loss dispatch of the JAX package: a curriculum net
+    (SRFBN) supervises every step's output against the full target,
+    averaged over the steps; a progressive net (MSLapSRN, ProSR) adds to
+    the final loss each level's loss against the target resized to the
+    level (bicubic, align_corners, clipped to [0, 1]; the per-pixel
+    weights dropped), averaged over the levels + 1. A net without
+    intermediate outputs takes the master loss as it is. The holder's
+    terms are averaged as the total is."""
+    inter = outputs.get('intermediate_outs')
+    if inter is None:
+        return master(outputs, batch, params, epoch, elb_t)
+    if net_type == constants.SRFBN:
+        parts = [master({**outputs, 'out': o}, batch, params, epoch, elb_t)
+                 for o in inter]
+    elif net_type in (constants.MSLAPSR, constants.PROSR):
+        parts = [master(outputs, batch, params, epoch, elb_t)]
+        level_batch = {k: v for k, v in batch.items()
+                       if k != 'h_per_pixel_weight'}
+        for o in inter:
+            target = torch.clip(resize2d(batch['h_im'], o.shape[-2:],
+                                         align_corners=True), 0.0, 1.0)
+            parts.append(master({**outputs, 'out': o},
+                                {**level_batch, 'h_im': target}, params,
+                                epoch, elb_t))
+    else:
+        return master(outputs, batch, params, epoch, elb_t)
+    total = torch.zeros((), dtype=torch.float32,
+                        device=outputs['out'].device)
+    holder = None
+    for t_i, h_i in parts:
+        total = total + t_i
+        holder = h_i if holder is None else \
+            {k: holder[k] + h_i[k] for k in holder}
+    n = float(len(parts))
+    return total / n, {k: v / n for k, v in holder.items()}
 
 
 def loss_and_grads(model, master: MasterLoss, net_type: str, params: dict,
@@ -50,7 +86,7 @@ def loss_and_grads(model, master: MasterLoss, net_type: str, params: dict,
     a zero grad."""
     model.train()
     x = net_input(net_type, batch, netG)
-    outputs = {'out': model(x)}
+    outputs = model_outputs(model(x))
     total, holder = compute_model_loss(net_type, master, outputs, batch,
                                        params, epoch, elb_t)
     names = list(params)
@@ -150,8 +186,9 @@ def make_eval_forward(model, net_type: str, scale: int, netG: dict = None,
 
         def raw(z):
             if params is None:
-                return model(z)
-            return torch.func.functional_call(model, params, (z,))
+                return model_outputs(model(z))['out']
+            return model_outputs(torch.func.functional_call(
+                model, params, (z,)))['out']
 
         return uint8_round(TM.test_mode(raw, x, mode=test_mode, sf=scale)
                            if test_mode else raw(x))

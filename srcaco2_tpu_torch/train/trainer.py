@@ -95,6 +95,11 @@ class Experiment:
             # bf16 operands are exact in TF32 either way.
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
+            # cuDNN's deterministic algorithms: its default for an f32
+            # transposed convolution sums with atomics, so that two f32
+            # forwards of MSLapSRN or SRFBN differ in the last bits and
+            # `eval` would not reproduce the final test
+            torch.backends.cudnn.deterministic = True
 
         # datasets ---------------------------------------------------
         tr_names = [s for s in str(args['train_dsets']).split(SEP) if s]
@@ -128,6 +133,12 @@ class Experiment:
 
         # model + loss + optimizer ------------------------------------
         self.model = define_g(args, dev, seed=self.seed)
+        # the model's persistent buffers (ENLCN's fixed projections): not
+        # trained, but saved and loaded with the parameters
+        params = dict(self.model.named_parameters())
+        self.buffers = {k: v for k, v in
+                        self.model.state_dict(keep_vars=True).items()
+                        if k not in params}
         self.master = build_loss(args)
         self.tx = build_optimizer(args['train'])
         self.pipe_cfg = P.from_args(args)
@@ -138,7 +149,8 @@ class Experiment:
 
         pre = args['netG'].get('init_pretrained_path', '')
         if pre:
-            template = dict(self.model.named_parameters())
+            template = {**dict(self.model.named_parameters()),
+                        **self.buffers}
             load = CKPT.load_params \
                 if bool(args['train'].get('G_param_strict', True)) \
                 else CKPT.load_params_nonstrict
@@ -189,10 +201,11 @@ class Experiment:
     # ------------------------------------------------------------ helpers
     def eval_params(self):
         """Weights for validation / model selection / test: netE (EMA)
-        with train.eval_netE and E_decay > 0, else netG."""
+        with train.eval_netE and E_decay > 0, else netG; with the model's
+        buffers."""
         if self.eval_netE and self.state.ema_params is not None:
-            return self.state.ema_params
-        return self.state.params
+            return {**self.state.ema_params, **self.buffers}
+        return {**self.state.params, **self.buffers}
 
     def _counted(self, phase: str, fn, *a, **k):
         """fn(*a, **k), adding the kernel launches it makes to
@@ -218,7 +231,7 @@ class Experiment:
 
     def resume(self) -> int:
         self.state, step = CKPT.load_checkpoint(
-            self.exp_dir, self.state,
+            self.exp_dir, self.state, buffers=self.buffers,
             load_optimizer=bool(
                 self.args['train'].get('G_optimizer_reuse', True)))
         if step:
@@ -312,7 +325,7 @@ class Experiment:
         return summary
 
     def _save(self) -> None:
-        CKPT.save_checkpoint(self.exp_dir, self.state)
+        CKPT.save_checkpoint(self.exp_dir, self.state, self.buffers)
         CKPT.gc_checkpoints(self.exp_dir, int(self.state.step))
 
     def _save_trackers(self) -> None:

@@ -120,6 +120,14 @@ def test_port_scan_covers_the_eval_modules():
             'srcaco2_tpu_torch/ops/metrics.py',
             'srcaco2_tpu_torch/train/evaluator.py',
             'srcaco2_tpu_torch/train/steps.py',
+            'srcaco2_tpu_torch/models/cnn_pre.py',
+            'srcaco2_tpu_torch/models/dfcan.py',
+            'srcaco2_tpu_torch/models/mslapsr.py',
+            'srcaco2_tpu_torch/models/srfbn.py',
+            'srcaco2_tpu_torch/models/enlcn.py',
+            'srcaco2_tpu_torch/models/act.py',
+            'srcaco2_tpu_torch/models/omnisr.py',
+            'srcaco2_tpu_torch/ops/patches.py',
             'chip_smoke.py'} <= scanned
 
 
