@@ -102,40 +102,53 @@ non-zero:
                 2 epochs: 8 steps; K5 in f32 on 256x256 LR validation);
                 ms per step, patches/s and peak memory
   zoo_check     each zoo net (DFCAN, SRCNN, VDSR, MSLapSRN, SRFBN, ENLCN,
-                ACT, OmniSR) at full width, x8, from the same seeded
-                weights on the card and the CPU: one training step's loss
-                and grads at batch 4 of 16x16 LR (SRCNN: the 128x128
-                pre-upscale), l2 + 5 SSIM(19), f32 with TF32 off (1e-5 /
+                ACT, OmniSR, NLSN, GRL, DRRN, MemNet) at full width, x8
+                (the depths of seven of them cut: ZOO_CHECK_NETG), from
+                the same seeded weights on the card and the CPU: one
+                training step's loss and grads at batch 4 of 16x16 LR
+                (SRCNN: the 128x128 pre-upscale), l2 + 5 SSIM(19), f32
+                with TF32 off (1e-5 /
                 1e-4; a grad over that held in float64 on both devices)
                 and bf16 (1e-2 / 3e-2 by windowed_check's floor rule where
                 a CPU control shows the rule can hold the net; the median
                 bf16 noise); every op of the card's f32 and bf16 steps
                 held to float64 on its own inputs (op_replay); an f32
-                eval forward at 64x64 LR (1e-5 of max |out|); SRFBN's 4
-                steps and MSLapSRN's 2 levels in the loss; no kernel
-                launch; see zoo_check
+                eval forward at 64x64 LR (1e-5 of max |out|); SRFBN's
+                4 steps and MSLapSRN's 2 levels in
+                the loss; NLSN with the same injected rotations on both
+                devices and its hash codes compared (where any differ,
+                the step or forward is held op by op: op_replay holds
+                argmax and the stable sort equal); no kernel launch; see
+                zoo_check
   zoo_train     each zoo net's train step (bf16 over f32 params): DFCAN
                 as bench.py's step (batch 128, 10 timed steps), the
-                others at the README's batch 64 (5 timed steps); ms/step,
-                patches/s, peak memory; the device time of one step by
-                kernel and the device's busy share for DFCAN (with the
-                FFT's share), ACT and OmniSR
+                others at the README's batch 64 (5 timed steps; NLSN,
+                GRL, DRRN and MemNet 3; MemNet with its per-pass
+                checkpoint); ms/step, patches/s, peak memory; the device
+                time of one step by kernel and the device's busy share
+                for DFCAN (with the FFT's share), ACT and OmniSR; then
+                SRFBN with srfbn_remat_steps: ms/step and peak memory
+                beside the default's, one step's loss and grads bit-equal
+                to the plain step's
   entry_zoo     `main` with the README's flags (x8, batch 64, amp, l2 + 5
                 SSIM(19), ROI eval and selection) and `eval` for each zoo
                 net on one synthetic dataset (128 / 4 / 4 images of
                 512^2, 1 epoch of 2 steps), four nets at a time; the
-                gates of entry_x8 with no kernel launch; SRCNN's best
-                model served through SRServer (3 requests, a ragged tail)
+                gates of entry_x8 with no kernel launch; SRCNN's and
+                MemNet's best models served through SRServer (3 requests,
+                a ragged tail; MemNet with its saved running statistics)
   kernels       the kernels line (K1-K6, one JSON object)
 followed by the nvidia-smi line and, last, the {"ok": true, ...} line.
 Imports nothing of JAX or of the JAX package.
 """
 import argparse
+import contextlib
 import json
 import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 # H100 SXM, NVIDIA data sheet: dense bf16 tensor-core peak, HBM3 rate
@@ -1532,14 +1545,42 @@ def windowed_profile(dev, smi, steps=5):
 # the zoo (every ported net but SwinIR) at its full default width, x8 on
 # 16x16 LR patches (h_size 128), one channel
 ZOO = ('DFCAN', 'SRCNN', 'VDSR', 'MSLapSRN', 'SRFBN', 'ENLCN', 'ACT',
-       'OmniSR')
+       'OmniSR', 'NLSN', 'GRL', 'DRRN', 'MemNet')
+# zoo_train's timed steps: DFCAN's as bench.py's, the second part of the
+# zoo fewer than the first
+ZOO_STEPS = {'DFCAN': 10, 'NLSN': 3, 'GRL': 3, 'DRRN': 3, 'MemNet': 3}
+# zoo_check's depth cuts (full width), which keep the whole script in
+# about two thirds of its time limit: at full depth the CPU side and the
+# float64 op replay of MemNet (216 block applications at HR size) took
+# 538 s, DRRN's (50 convs of 128 channels at HR size) 89 s, GRL's (40
+# blocks) 67 s, OmniSR's 62 s, SRFBN's 48 s, NLSN's 37 s, ACT's 33 s
+# and ENLCN's 26 s on the card's host. MemNet keeps the recursion (one
+# memory block: the same 3-block chain 3 times, each BatchNorm moved 3
+# times), DRRN 6 applications of its shared unit, GRL two stages of 4
+# blocks (both shifts and stripe kinds), OmniSR 2 of its 5 groups,
+# SRFBN its 4 feedback steps over 3 of its 6 groups, NLSN 16 of its 32
+# blocks (3 attention layers), ACT 4 of its 12 blocks per group. ENLCN
+# keeps its depth: at 16 blocks its bf16 step is gated end to end (the
+# control moves no grad) and one bias grad of its third attention layer
+# lay 1.4 x the tolerance from the CPU's, with every op within its
+# rounding (a run on an NVIDIA H100 80GB HBM3 at 700 W)
+ZOO_CHECK_NETG = {
+    'MemNet': dict(memnet_num_memory_blocks=1,
+                   memnet_num_residual_blocks=3),
+    'DRRN': dict(drrn_num_residual_units=6),
+    'GRL': dict(grl_depths=[4, 4], grl_num_heads_window=[3, 3],
+                grl_num_heads_stripe=[3, 3]),
+    'OmniSR': dict(omnisr_res_num=2),
+    'SRFBN': dict(srfbn_num_groups=3),
+    'NLSN': dict(nlsn_n_resblocks=16),
+    'ACT': dict(act_n_resblocks=4)}
 # intermediate outputs at x8: SRFBN's 4 steps, MSLapSRN's first 2 levels
 ZOO_LEVELS = {'SRFBN': 4, 'MSLapSRN': 2}
 # README.md:91-100's batch, and bench.py's DFCAN step (bench.py:221-240)
 ZOO_BATCH, DFCAN_BATCH = 64, TRAIN_B
-# the nets whose train step zoo_train profiles: bench.py's, and the two
-# slowest steps
-ZOO_PROFILED = ('DFCAN', 'ACT', 'OmniSR')
+# the nets whose train step zoo_train profiles: bench.py's, and the
+# slowest steps of each part of the zoo
+ZOO_PROFILED = ('DFCAN', 'ACT', 'OmniSR', 'GRL', 'MemNet')
 # zoo_check's bf16 control: the CPU's step again from weights moved by
 # ZOO_JITTER relative; where it moves more than ZOO_NOISE_SHARE of the
 # grads beyond the tolerance from the CPU's first run, the per-grad rule
@@ -1556,6 +1597,13 @@ def zoo_args(nt, amp):
     args.update(scale=SCALE, n_channels=1, h_size=H_SIZE, amp=amp, l2=True,
                 ssim=True, ssim_lambda=5.0, ssim_window_s=19)
     args['netG'] = init_net_g({'net_type': nt}, args)
+    return args
+
+
+def zoo_check_args(nt, amp):
+    """zoo_args with zoo_check's depth cut (ZOO_CHECK_NETG)."""
+    args = zoo_args(nt, amp)
+    args['netG'].update(ZOO_CHECK_NETG.get(nt, {}))
     return args
 
 
@@ -1751,6 +1799,38 @@ def _levels_check(nt, model, master, batch, loss):
                     and abs(mean - loss) <= 1e-4 * abs(loss)))
 
 
+def nlsn_probe(model, length, seed=21):
+    """For an NLSN: its rotations set to fixed draws (one per attention
+    layer, from a CPU generator seeded `seed`, for `length` positions), so
+    that the card and the CPU hash with the same ones, and a list that
+    each layer's hash codes are appended to (CPU copies) as the forward
+    runs. [] and nothing changed for another net."""
+    import torch
+    from srcaco2_tpu_torch.models.nlsn import NonLocalSparseAttention
+    layers = [m for m in model.modules()
+              if isinstance(m, NonLocalSparseAttention)]
+    codes = []
+    if not layers:
+        return codes
+    g = torch.Generator().manual_seed(seed)
+    model.rotations = [torch.randn(m.rotation_shape(length), generator=g)
+                       for m in layers]
+    for m in layers:
+        def hash_codes(emb, rot, fn=m.hash_codes):
+            c = fn(emb, rot)
+            codes.append(c.detach().cpu())
+            return c
+        m.hash_codes = hash_codes
+    return codes
+
+
+def codes_differ(a, b):
+    """(positions whose hash code differs, positions) over two runs'
+    recorded codes."""
+    return (sum(int((x != y).sum()) for x, y in zip(a, b)),
+            sum(x.numel() for x in a))
+
+
 def _zoo_step(nt, args, d, batch, f64=False, replay=False, jitter=0.0):
     """One loss_and_grads of nt's seeded model on `d`: loss, grads (on the
     CPU, f32), seconds, launches, the model and master (for the levels
@@ -1758,13 +1838,14 @@ def _zoo_step(nt, args, d, batch, f64=False, replay=False, jitter=0.0):
     the step under op_replay (its summary under 'replay'); `jitter`
     first scales every parameter by 1 + jitter * N(0, 1) (a fixed draw):
     the same weights to far under a bf16 ulp, some of them rounded to
-    bf16 the other way."""
-    import contextlib
+    bf16 the other way. An NLSN hashes with fixed rotations, its hash
+    codes recorded under 'hash_codes' (nlsn_probe)."""
     import torch
     from srcaco2_tpu_torch.losses.master import build_loss
     from srcaco2_tpu_torch.models.registry import define_g
     from srcaco2_tpu_torch.train.steps import loss_and_grads
     model = define_g(args, d, seed=0).train()
+    codes = nlsn_probe(model, PATCH * PATCH)
     if jitter:
         g = torch.Generator().manual_seed(5)
         with torch.no_grad():
@@ -1789,7 +1870,7 @@ def _zoo_step(nt, args, d, batch, f64=False, replay=False, jitter=0.0):
     rec = dict(loss=float(loss),
                grads={k: g.float().cpu() for k, g in grads.items()},
                seconds=time.perf_counter() - t0, launches=read_launches(),
-               model=model, master=master)
+               model=model, master=master, hash_codes=codes)
     if replay:
         rec['replay'] = mode.summary()
     return rec
@@ -1820,7 +1901,8 @@ def _zoo_summary(rec):
             'grad_rel_l2_max_unfloored', 'median_card_bf16_vs_f32',
             'median_cpu_bf16_vs_f32', 'f64_loss_rel', 'rel_l2',
             'max_abs_diff', 'f64_card_vs_cpu', 'end_to_end_gated',
-            'end_to_end_held', 'max_card_over_cpu_f32_vs_f64')
+            'end_to_end_held', 'max_card_over_cpu_f32_vs_f64',
+            'hash_codes_differ', 'n_hash_codes')
     out = {}
     for nt, res in rec.items():
         if not isinstance(res, dict):
@@ -1843,8 +1925,9 @@ def _zoo_summary(rec):
     return out
 
 
-def zoo_check(dev):
-    """Each zoo net at full width, x8, from the same seeded weights on
+def zoo_check(dev, nets=ZOO):
+    """Each zoo net at full width (at the depths of ZOO_CHECK_NETG), x8,
+    from the same seeded weights on
     the card and on the CPU: one training step's loss and grads
     (loss_and_grads, batch 4 of 16x16 LR patches, SRCNN on their 128x128
     pre-upscale; l2 + 5 neg-SSIM(19)) in f32 with TF32 off and in bf16,
@@ -1893,7 +1976,16 @@ def zoo_check(dev):
     further from its float64 one than 4 x the CPU's + 1e-7 (ACT, whose
     outputs reach ~1e3 at these weights: on an NVIDIA H100 80GB HBM3 at
     700 W its f32 forward lay 2.5 x as far from float64 as the CPU's,
-    its float64 forward 1.4e-14 from the CPU's)."""
+    its float64 forward 1.4e-14 from the CPU's).
+
+    NLSN's hash (argmax over rotated embeddings, then a stable sort) is
+    discontinuous: both devices hash with the same injected rotations
+    (nlsn_probe) and their codes are counted apart. Where any code
+    differs, a rounding difference next to a tie moved whole rows
+    between chunks, and the step (f32 or bf16) is held by op_replay
+    alone, which holds argmax and the sort equal on the card's own
+    inputs; the eval forward then runs once more on the card under
+    op_replay, which must pass. The end-to-end values are recorded."""
     import statistics as st
     import torch
     from srcaco2_tpu_torch.models.registry import define_g
@@ -1914,11 +2006,11 @@ def zoo_check(dev):
         return abs(a - b) / abs(b)
 
     out, ok_all = {}, True
-    for nt in ZOO:
+    for nt in nets:
         t_net = time.perf_counter()
         runs = {}
         for name, amp in (('f32', False), ('bf16', True)):
-            args = zoo_args(nt, amp)
+            args = zoo_check_args(nt, amp)
             for side, d, bt in sides:
                 rec = _zoo_step(nt, args, d, bt)
                 if side == 'card' and name == 'f32' and nt in ZOO_LEVELS:
@@ -1929,7 +2021,7 @@ def zoo_check(dev):
             rec = _zoo_step(nt, args, dev, batch_1, replay=True)
             runs[name, 'card']['replay'] = rec['replay']
             del rec
-        rec = _zoo_step(nt, zoo_args(nt, True), cpu, batch_cpu,
+        rec = _zoo_step(nt, zoo_check_args(nt, True), cpu, batch_cpu,
                         jitter=ZOO_JITTER)
         del rec['model'], rec['master']
         runs['bf16', 'control'] = rec
@@ -1943,7 +2035,8 @@ def zoo_check(dev):
         floored, extra = {}, {}
         if any(e > tol['grad_rel_l2'] for e in grel.values()):
             for side, d, bt in sides:
-                rec = _zoo_step(nt, zoo_args(nt, False), d, bt, f64=True)
+                rec = _zoo_step(nt, zoo_check_args(nt, False), d, bt,
+                                f64=True)
                 del rec['model'], rec['master']
                 runs['f64', side] = rec
             c64, r64 = runs['f64', 'card'], runs['f64', 'cpu']
@@ -1963,10 +2056,24 @@ def zoo_check(dev):
                 f['card_f32_vs_f64'] / max(f['cpu_f32_vs_f64'], 1e-30)
                 for f in floored.values())
             loss_ok = loss_ok and extra['f64_loss_rel'] <= tol['f64_loss_rtol']
+        # NLSN's hash: a rounding difference between the devices next to a
+        # tie flips an argmax and moves whole rows between chunks; where
+        # any code differs the step is held op by op (op_replay, argmax
+        # and sort equal on their inputs), the end-to-end values recorded
+        hashed = {}
+        for name in ('f32', 'bf16'):
+            if runs[name, 'card']['hash_codes']:
+                n_diff, n_codes = codes_differ(
+                    runs[name, 'card']['hash_codes'],
+                    runs[name, 'cpu']['hash_codes'])
+                hashed[name] = dict(hash_codes_differ=n_diff,
+                                    n_hash_codes=n_codes)
         res['train_f32'] = dict(
             loss_card=c['loss'], loss_cpu=r['loss'],
             loss_rel=rel(c['loss'], r['loss']), loss_ok=loss_ok,
-            grads_ok=all(f['ok'] for f in floored.values()), **extra)
+            grads_ok=all(f['ok'] for f in floored.values()),
+            end_to_end_gated=not hashed.get('f32', {}).get(
+                'hash_codes_differ'), **hashed.get('f32', {}), **extra)
         # bf16
         c, r = runs['bf16', 'card'], runs['bf16', 'cpu']
         c32, r32 = runs['f32', 'card'], runs['f32', 'cpu']
@@ -1997,7 +2104,10 @@ def zoo_check(dev):
             end_to_end_held=loss_held and grads_held,
             end_to_end_gated=(ctrl['loss_rel'] <= btol['loss_rtol']
                               and ctrl['moved_share']
-                              <= btol['control_noise_share']),
+                              <= btol['control_noise_share']
+                              and not hashed.get('bf16', {}).get(
+                                  'hash_codes_differ')),
+            **hashed.get('bf16', {}),
             control=ctrl,
             median_card_bf16_vs_f32=st.median(fc),
             median_cpu_bf16_vs_f32=st.median(fr), **btol)
@@ -2021,7 +2131,8 @@ def zoo_check(dev):
                      launches=c['launches'], replay=c['replay'], **t)
             if 'levels' in c:
                 v['levels'] = c['levels']
-            held_ = (v['loss_ok'] and v['grads_ok'] if name == 'f32'
+            held_ = ((v['loss_ok'] and v['grads_ok']
+                      or not v['end_to_end_gated']) if name == 'f32'
                      else v['median_ok'] and (v['end_to_end_held']
                                               or not v['end_to_end_gated']))
             v['ok'] = (held_ and v['grads_finite']
@@ -2031,24 +2142,26 @@ def zoo_check(dev):
         del runs
         # an f32 evaluation forward at 64x64 LR (SRCNN: its 512x512
         # pre-upscale)
-        args = zoo_args(nt, False)
+        args = zoo_check_args(nt, False)
         x = x_eval
         if nt == 'SRCNN':
             from srcaco2_tpu_torch.ops.resize import resize2d
             x = torch.clip(resize2d(x, (LR * SCALE, LR * SCALE)), 0, 1)
-        ys = {}
+        ys, ev_codes = {}, {}
 
-        def forward(side, d, f64=False):
+        def forward(side, d, f64=False, replay=None):
             model = define_g(args, d, seed=0)
+            codes = nlsn_probe(model, LR * LR)
             xd = x.to(d)
             if f64:
                 _as_float64(model)
                 xd = xd.double()
             t0 = time.perf_counter()
-            with torch.inference_mode():
+            with torch.inference_mode(), (replay or contextlib.nullcontext()):
                 y = model_outputs(model(xd))['out'].double().cpu()
             ys[side + ('_f64' if f64 else '') + '_s'] = \
                 time.perf_counter() - t0
+            ev_codes[side + ('_f64' if f64 else '')] = codes
             return y
 
         reset_launches()
@@ -2063,7 +2176,16 @@ def zoo_check(dev):
                   max_abs_of_max=1e-4, launches=launches,
                   card_seconds=ys['card_s'], cpu_seconds=ys['cpu_s'])
         close = rel_l2 <= 1e-5 and err <= 1e-4 * scale_
-        if not close:
+        if ev_codes['card']:
+            ev['hash_codes_differ'], ev['n_hash_codes'] = codes_differ(
+                ev_codes['card'], ev_codes['cpu'])
+        if ev.get('hash_codes_differ'):
+            # held op by op on the card's own inputs, as the step is
+            rep_ = op_replay()
+            forward('card', dev, replay=rep_)
+            ev['replay'] = rep_.summary()
+            close = ev['replay']['n_failed'] == 0
+        elif not close:
             for side, d, _ in sides:
                 ys[side + '_f64'] = forward(side, d, f64=True)
             ev.update(f64_card_vs_cpu=_rel_l2(ys['card_f64'],
@@ -2090,22 +2212,129 @@ def zoo_check(dev):
     return out, ok_all
 
 
-def zoo_train(dev, smi):
-    """Each zoo net's train step on the card (bf16 over f32 params, the
-    README's amp; random seeded weights; l2 + 5 neg-SSIM(19); Adam) at
-    x8 on 16x16 LR patches: DFCAN as bench.py's step at batch 128 with 10
-    timed steps, the others at the README's batch 64 with 5; one
-    warm-up step each, host clock synchronised around the timed steps;
-    ms/step, patches/s, peak memory, no kernel launch; the device time
-    of one step by kernel and the device's busy share (profile_device)
-    for ZOO_PROFILED, DFCAN's with the FFT's share (cuFFT's kernels)."""
+def _zoo_train_one(nt, args, dev, data, b, steps, profile=False):
+    """nt's train step on the card from seeded weights: one warm-up
+    step, `steps` timed steps (host clock synchronised around them), the
+    record of zoo_train; with `profile` the device time of one step."""
     import torch
-    from srcaco2_tpu_torch.data import pipeline as P
     from srcaco2_tpu_torch.losses.master import build_loss
     from srcaco2_tpu_torch.models.registry import define_g
     from srcaco2_tpu_torch.train.schedule import build_optimizer
     from srcaco2_tpu_torch.train.state import TrainState
     from srcaco2_tpu_torch.train.steps import make_train_step
+    hr, lr, inputs, cfg = data
+    t_net = time.perf_counter()
+    model = define_g(args, dev, seed=0).train()
+    tx = build_optimizer(args['train'])
+    state = TrainState.create(dict(model.named_parameters()), tx)
+    step = make_train_step(model, build_loss(args), tx, nt, cfg,
+                           steps_per_epoch=1000)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, _, _ = step(state, hr, lr, *inputs(b))
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    batches = [inputs(b) for _ in range(steps)]
+    reset_launches()
+    t0 = time.perf_counter()
+    for bt in batches:
+        state, holder, ok = step(state, hr, lr, *bt)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / steps
+    launches = read_launches()
+    rec = dict(model=f'{nt} x8 (config/net_defaults.py), bf16 over f32 '
+               'params, random weights (seed 0)', batch=b,
+               lr_patch=[PATCH, PATCH], steps=steps, ms_per_step=ms,
+               patches_per_s=b * 1e3 / ms, first_step_seconds=first_s,
+               max_memory_allocated=torch.cuda.max_memory_allocated(),
+               n_params=sum(p.numel() for p in model.parameters()),
+               loss=float(holder['total']), flags=float(holder['_flags']),
+               launches=launches)
+    if profile:
+        bt = inputs(b)
+        rec['profile'] = profile_device(
+            lambda: step(state, hr, lr, *bt), ms,
+            groups={'fft': ('fft',)} if nt == 'DFCAN' else None)
+    rec['ok'] = (bool(torch.isfinite(holder['total'])) and bool(ok)
+                 and all(v == 0 for v in launches.values()))
+    rec['seconds'] = time.perf_counter() - t_net
+    del model, state, step, tx
+    torch.cuda.empty_cache()
+    return rec
+
+
+def srfbn_remat(dev, data, plain):
+    """SRFBN with srfbn_remat_steps=True at the README's batch: ms/step
+    and peak memory beside the default's (`plain`, zoo_train's record);
+    and one step's loss and grads (loss_and_grads, the same seeded
+    weights and batch, cuDNN's deterministic algorithms) with the option
+    on and off, which must be bit-equal, with the plain step run twice
+    as the control of the determinism."""
+    import torch
+    from srcaco2_tpu_torch.losses.master import build_loss
+    from srcaco2_tpu_torch.models.registry import define_g
+    from srcaco2_tpu_torch.train.steps import loss_and_grads
+    args = zoo_args('SRFBN', True)
+    args['netG']['srfbn_remat_steps'] = True
+    rec = _zoo_train_one('SRFBN', args, dev, data, ZOO_BATCH,
+                         3)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    batch = zoo_batch(dev, ZOO_BATCH, 17)
+    grads = {}
+    for name, on in (('plain', False), ('remat', True), ('plain_again',
+                                                         False)):
+        a = zoo_args('SRFBN', True)
+        a['netG']['srfbn_remat_steps'] = on
+        model = define_g(a, dev, seed=0).train()
+        built_as_asked = model.remat_steps is on
+        params = dict(model.named_parameters())
+        loss, _, _, g = loss_and_grads(model, build_loss(a), 'SRFBN',
+                                       params, batch, 0, 1.0)
+        grads[name] = (loss.float().cpu(),
+                       {k: v.float().cpu() for k, v in g.items()},
+                       built_as_asked)
+        del model, params, g
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = det
+
+    def same(x, y):
+        return bool(torch.equal(x[0], y[0]) and all(
+            torch.equal(x[1][k], y[1][k]) for k in x[1]))
+    rec['remat_steps_as_asked'] = all(v[2] for v in grads.values())
+    rec.update(
+        plain_ms_per_step=plain['ms_per_step'],
+        plain_max_memory_allocated=plain['max_memory_allocated'],
+        memory_ratio=rec['max_memory_allocated']
+        / plain['max_memory_allocated'],
+        time_ratio=rec['ms_per_step'] / plain['ms_per_step'],
+        bit_equal_to_plain=same(grads['remat'], grads['plain']),
+        plain_bit_equal_twice=same(grads['plain_again'], grads['plain']),
+        loss=float(grads['remat'][0]))
+    rec['ok'] = (rec['ok'] and rec['bit_equal_to_plain']
+                 and rec['remat_steps_as_asked']
+                 and rec['max_memory_allocated']
+                 < plain['max_memory_allocated'])
+    return rec
+
+
+def zoo_train(dev, smi, nets=ZOO):
+    """Each zoo net's train step on the card (bf16 over f32 params, the
+    README's amp; random seeded weights; l2 + 5 neg-SSIM(19); Adam) at
+    x8 on 16x16 LR patches: DFCAN as bench.py's step at batch 128 with 10
+    timed steps, the others at the README's batch 64 with 5 (the second
+    part of the zoo, NLSN, GRL, DRRN and MemNet, with 3: ZOO_STEPS;
+    MemNet with its per-pass checkpoint on, as its default is); one
+    warm-up step each, host clock synchronised around the timed steps;
+    ms/step, patches/s, peak memory, no kernel launch; the device time
+    of one step by kernel and the device's busy share (profile_device)
+    for ZOO_PROFILED, DFCAN's with the FFT's share (cuFFT's kernels).
+    NLSN's steps draw their rotations from per-step generators, as the
+    trainer's. Then SRFBN with srfbn_remat_steps (srfbn_remat)."""
+    import torch
+    from srcaco2_tpu_torch.data import pipeline as P
+    from srcaco2_tpu_torch.utils import reproducibility as R
     cfg = P.PipeConfig(scale=SCALE, h_size=H_SIZE)
     gen = torch.Generator(device=dev).manual_seed(13)
     n_img = 2 * DFCAN_BATCH
@@ -2113,55 +2342,38 @@ def zoo_train(dev, smi):
                        device=dev, dtype=torch.uint8)
     lr = torch.randint(0, 256, (n_img, PATCH, PATCH, 1), generator=gen,
                        device=dev, dtype=torch.uint8)
-    out, ok_all = {}, True
-    for nt in ZOO:
-        b, steps = (DFCAN_BATCH, 10) if nt == 'DFCAN' else (ZOO_BATCH, 5)
-        args = zoo_args(nt, True)
-        model = define_g(args, dev, seed=0).train()
-        tx = build_optimizer(args['train'])
-        state = TrainState.create(dict(model.named_parameters()), tx)
-        step = make_train_step(model, build_loss(args), tx, nt, cfg,
-                               steps_per_epoch=1000)
+    drawn = []
 
-        def inputs():
-            idxs = torch.randint(0, n_img, (b,), generator=gen, device=dev)
-            return idxs, P.draw(gen, b, cfg, (H_SIZE, H_SIZE))
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        state, _, _ = step(state, hr, lr, *inputs())
-        torch.cuda.synchronize()
-        first_s = time.perf_counter() - t0
-        batches = [inputs() for _ in range(steps)]
-        reset_launches()
-        t0 = time.perf_counter()
-        for bt in batches:
-            state, holder, ok = step(state, hr, lr, *bt)
-        torch.cuda.synchronize()
-        ms = 1e3 * (time.perf_counter() - t0) / steps
-        launches = read_launches()
-        rec = dict(model=f'{nt} x8 (config/net_defaults.py), bf16 over f32 '
-                   'params, random weights (seed 0)', batch=b,
-                   lr_patch=[PATCH, PATCH], steps=steps, ms_per_step=ms,
-                   patches_per_s=b * 1e3 / ms, first_step_seconds=first_s,
-                   max_memory_allocated=torch.cuda.max_memory_allocated(),
-                   n_params=sum(p.numel() for p in model.parameters()),
-                   loss=float(holder['total']), flags=float(holder['_flags']),
-                   launches=launches)
-        if nt in ZOO_PROFILED:
-            bt = inputs()
-            rec['profile'] = profile_device(
-                lambda: step(state, hr, lr, *bt), ms,
-                groups={'fft': ('fft',)} if nt == 'DFCAN' else None)
-        rec['ok'] = (bool(torch.isfinite(holder['total'])) and bool(ok)
-                     and all(v == 0 for v in launches.values()))
+    def inputs(b):
+        idxs = torch.randint(0, n_img, (b,), generator=gen, device=dev)
+        drawn.append(1)
+        return idxs, P.draw(gen, b, cfg, (H_SIZE, H_SIZE))._replace(
+            lsh=R.lsh_generator(13, len(drawn)))
+    data = (hr, lr, inputs, cfg)
+    out, ok_all = {}, True
+    for nt in nets:
+        b = DFCAN_BATCH if nt == 'DFCAN' else ZOO_BATCH
+        rec = _zoo_train_one(nt, zoo_args(nt, True), dev, data, b,
+                             ZOO_STEPS.get(nt, 5), nt in ZOO_PROFILED)
         rec['nvidia_smi'] = smi
         out[nt] = rec
         ok_all = ok_all and rec['ok']
         print(json.dumps({'zoo_train_net': nt, 'ok': rec['ok'],
-                          'ms_per_step': ms}), flush=True)
-        del model, state, step, tx
-        torch.cuda.empty_cache()
+                          'ms_per_step': rec['ms_per_step'],
+                          'max_memory_allocated':
+                          rec['max_memory_allocated']}), flush=True)
+    if 'SRFBN' in out:
+        rec = srfbn_remat(dev, data, out['SRFBN'])
+        rec['nvidia_smi'] = smi
+        out['SRFBN_remat_steps'] = rec
+        ok_all = ok_all and rec['ok']
+        print(json.dumps({'zoo_train_net': 'SRFBN_remat_steps',
+                          **{k: rec[k] for k in (
+                              'ok', 'ms_per_step', 'max_memory_allocated',
+                              'plain_ms_per_step',
+                              'plain_max_memory_allocated',
+                              'bit_equal_to_plain',
+                              'plain_bit_equal_twice')}}), flush=True)
     return out, ok_all
 
 
@@ -2336,9 +2548,26 @@ ZOO_ENTRY = dict(scale=8, n_train=2 * ZOO_BATCH, n_val=4, n_test=4,
                  epochs=1, steps=2, workers=4)
 
 
-def _zoo_entry_one(nt, tmp, data, names, out_dir):
-    """main then eval for one net in its own working directory; the
-    gates of entry_phase, with no kernel launch in any phase."""
+# the nets whose `main` holds 15 GB or more at batch 64 (MemNet 36.4,
+# SRFBN 25.6, DRRN 15.2; the others at most 9.0): entry_zoo runs one of
+# them at a time beside the others, so that four concurrent runs leave
+# the card's memory far from full. Near full, cuDNN picks convolution
+# algorithms by the workspace it can get, and a forward is no longer
+# reproducible: GRL's f32 eval forward at 64x64 LR changed 79 output
+# pixels with 1.5 GB free (run on an NVIDIA H100 80GB HBM3 at 700 W),
+# and `eval` then misses the final test
+ZOO_HEAVY = ('SRFBN', 'DRRN', 'MemNet')
+
+
+def _zoo_entry_one(nt, tmp, data, names, out_dir, heavy_slot):
+    """main then eval for one net in its own working directory (a ZOO_HEAVY
+    net holding `heavy_slot` meanwhile); the gates of entry_phase, with
+    no kernel launch in any phase."""
+    with heavy_slot if nt in ZOO_HEAVY else contextlib.nullcontext():
+        return _zoo_entry_run(nt, tmp, data, names, out_dir)
+
+
+def _zoo_entry_run(nt, tmp, data, names, out_dir):
     import pickle
     import shutil
     from srcaco2_tpu_torch.train import checkpoint as CKPT
@@ -2414,25 +2643,104 @@ def _zoo_entry_one(nt, tmp, data, names, out_dir):
     return rec
 
 
-def entry_zoo(dev, out_dir=None):
+# the LR side each served zoo net takes (its CPU comparison runs the
+# same requests: MemNet's 216 block applications on 64x64 LR take ~40 s
+# per image on the host)
+ZOO_SERVE_LR = {'SRCNN': LR, 'MemNet': 16}
+
+
+def _serve_zoo(nt, exp, dev):
+    """nt's best model served through SRServer on the card: 3 requests
+    (11 images: a batch of 8 and a ragged tail of 3 padded to 8; 8; the
+    same 8 again, bit for bit), uint8 out, and the tail request's pixels
+    against the same server on the CPU. The model computes in bf16, as
+    the experiment trained with amp. SRCNN (3 layers): a different f32
+    sum order flips a bf16 rounding, one uint8 level at outputs in
+    [0.5, 1); 99% within 1 level, none more than 2 apart. MemNet (216
+    block applications, each normalised by running statistics): the
+    flips travel through the depth, so the card's pixels are held to an
+    f32 server of the same weights as the `serve` phase holds the kernel
+    path, no further from it than the CPU's bf16 pixels are (mean within
+    1.25 x, max within 2 x). SRCNN takes the bicubic pre-upscale; MemNet
+    the LR batch, normalised with the running statistics the experiment
+    saved (the served model in evaluation mode, its buffers the best
+    model's)."""
+    import numpy as np
+    import torch
+    from srcaco2_tpu_torch.inference.serve import SRServer
+    lr_side = ZOO_SERVE_LR[nt]
+    rng = np.random.default_rng(0)
+    req_a = rng.integers(0, 256, (11, 1, lr_side, lr_side), dtype=np.uint8)
+    req_b = rng.integers(0, 256, (BATCH, 1, lr_side, lr_side),
+                         dtype=np.uint8)
+    srv = SRServer(exp, batch_size=BATCH, lr_hw=(lr_side, lr_side),
+                   device=dev)
+    t0 = time.perf_counter()
+    out_a = srv(req_a)
+    out_b, out_c = srv(req_b), srv(req_b)
+    serve_s = time.perf_counter() - t0
+    cpu = SRServer(exp, batch_size=3, lr_hw=(lr_side, lr_side),
+                   device='cpu')(req_a[8:])
+    udiff = np.abs(cpu.astype(np.int16) - out_a[8:].astype(np.int16))
+    best = torch.load(os.path.join(exp, 'best-models', 'G-model.pt'),
+                      map_location='cpu', weights_only=True)
+    bufs = dict(srv.model.named_buffers())
+    side = lr_side * SCALE
+    s = dict(
+        requests=[11, BATCH, BATCH], lr_hw=[lr_side, lr_side],
+        serve_seconds=serve_s, setup_seconds=srv.setup_seconds,
+        images_per_s=srv.throughput(iters=5),
+        pre_upsampled=srv.pre_upsampled, eval_mode=not srv.model.training,
+        n_buffers=len(bufs),
+        buffers_as_saved=all(torch.equal(b.cpu(), best[k])
+                             for k, b in bufs.items()),
+        shapes_ok=(out_a.shape == (11, 1, side, side)
+                   and out_b.shape == (BATCH, 1, side, side)
+                   and out_a.dtype == np.uint8),
+        deterministic=bool(np.array_equal(out_b, out_c)),
+        tail_vs_cpu_equal_share=float((udiff == 0).mean()),
+        tail_vs_cpu_within1_share=float((udiff <= 1).mean()),
+        tail_vs_cpu_max_diff=int(udiff.max()),
+        out_std=float(out_a.std()))
+    if nt == 'SRCNN':
+        close = (s['tail_vs_cpu_within1_share'] >= 0.99
+                 and s['tail_vs_cpu_max_diff'] <= 2)
+    else:
+        ref = SRServer(args={**srv.args, 'amp': False}, state_dict=best,
+                       batch_size=3, lr_hw=(lr_side, lr_side),
+                       device=dev)(req_a[8:]).astype(np.int16)
+        e_card = np.abs(out_a[8:].astype(np.int16) - ref)
+        e_cpu = np.abs(cpu.astype(np.int16) - ref)
+        s.update(card_vs_f32_mean=float(e_card.mean()),
+                 card_vs_f32_max=int(e_card.max()),
+                 cpu_vs_f32_mean=float(e_cpu.mean()),
+                 cpu_vs_f32_max=int(e_cpu.max()))
+        close = (e_card.mean() <= 1.25 * e_cpu.mean()
+                 and e_card.max() <= 2 * e_cpu.max())
+    s['ok'] = bool(close and s['shapes_ok'] and s['deterministic']
+                   and s['eval_mode'] and s['buffers_as_saved']
+                   and s['pre_upsampled'] == (nt == 'SRCNN')
+                   and (nt != 'MemNet' or s['n_buffers'] > 0))
+    del srv
+    return s
+
+
+# the nets SRServer serves in entry_zoo
+ZOO_SERVED = ('SRCNN', 'MemNet')
+
+
+def entry_zoo(dev, out_dir=None, nets=ZOO):
     """`python -m srcaco2_tpu_torch.main --net_type <NET>` with the
     README's flags, then `python -m srcaco2_tpu_torch.eval`, for each zoo
     net on one synthetic x8 dataset (128 / 4 / 4 images of 512^2; 1 epoch
     of 2 steps at batch 64, a validation, the test), four nets at a time
     on the card; the gates of entry_phase with no kernel launch. Then
-    SRCNN's best model served through SRServer on the card: 3 requests
-    (11 images: a batch of 8 and a ragged tail of 3 padded to 8; 8; the
-    same 8 again, bit for bit), uint8 out, and the tail request's pixels
-    against the same server on the CPU (the model computes in bf16, as
-    the experiment trained with amp: a different f32 sum order flips a
-    bf16 rounding, one uint8 level at outputs in [0.5, 1); 99% within 1
-    level, none more than 2 apart)."""
+    SRCNN's and MemNet's best models served through SRServer on the card
+    (_serve_zoo)."""
     import tempfile
     from concurrent.futures import ThreadPoolExecutor
-    import numpy as np
     import torch
     from srcaco2_tpu_torch.data.synthetic import make_synthetic_dataset
-    from srcaco2_tpu_torch.inference.serve import SRServer
     cfg = ZOO_ENTRY
     t_all = time.perf_counter()
     out = {}
@@ -2446,51 +2754,23 @@ def entry_zoo(dev, out_dir=None):
         out['dataset'] = dict(names=names, seconds=time.perf_counter() - t0,
                               n=[cfg['n_train'], cfg['n_val'],
                                  cfg['n_test']])
+        heavy_slot = threading.Semaphore(1)
         with ThreadPoolExecutor(cfg['workers']) as pool:
             futs = {nt: pool.submit(_zoo_entry_one, nt, tmp, data, names,
-                                    out_dir) for nt in ZOO}
-            nets = {nt: f.result() for nt, f in futs.items()}
-        out['nets'] = nets
-        ok = all(r['ok'] for r in nets.values())
-        if nets['SRCNN']['ok']:
-            exp = nets['SRCNN']['exp']
-            rng = np.random.default_rng(0)
-            req_a = rng.integers(0, 256, (11, 1, LR, LR), dtype=np.uint8)
-            req_b = rng.integers(0, 256, (BATCH, 1, LR, LR), dtype=np.uint8)
-            srv = SRServer(exp, batch_size=BATCH, lr_hw=(LR, LR),
-                           device=dev)
-            t0 = time.perf_counter()
-            out_a = srv(req_a)
-            out_b, out_c = srv(req_b), srv(req_b)
-            serve_s = time.perf_counter() - t0
-            cpu = SRServer(exp, batch_size=3, lr_hw=(LR, LR),
-                           device='cpu')(req_a[8:])
-            udiff = np.abs(cpu.astype(np.int16)
-                           - out_a[8:].astype(np.int16))
-            out['serve_srcnn'] = dict(
-                requests=[11, BATCH, BATCH], serve_seconds=serve_s,
-                setup_seconds=srv.setup_seconds,
-                images_per_s=srv.throughput(iters=5),
-                pre_upsampled=srv.pre_upsampled,
-                shapes_ok=(out_a.shape == (11, 1, LR * SCALE, LR * SCALE)
-                           and out_b.shape == (BATCH, 1, LR * SCALE,
-                                               LR * SCALE)
-                           and out_a.dtype == np.uint8),
-                deterministic=bool(np.array_equal(out_b, out_c)),
-                tail_vs_cpu_equal_share=float((udiff == 0).mean()),
-                tail_vs_cpu_within1_share=float((udiff <= 1).mean()),
-                tail_vs_cpu_max_diff=int(udiff.max()),
-                out_std=float(out_a.std()))
-            s = out['serve_srcnn']
-            s['ok'] = (s['shapes_ok'] and s['deterministic']
-                       and s['pre_upsampled']
-                       and s['tail_vs_cpu_within1_share'] >= 0.99
-                       and s['tail_vs_cpu_max_diff'] <= 2)
-            ok = ok and s['ok']
-            del srv
-        else:
-            ok = False
-        for r in nets.values():
+                                    out_dir, heavy_slot) for nt in nets}
+            nets_ = {nt: f.result() for nt, f in futs.items()}
+        out['nets'] = nets_
+        ok = all(r['ok'] for r in nets_.values())
+        for nt in ZOO_SERVED:
+            if nt not in nets_:
+                continue
+            if nets_[nt]['ok']:
+                out[f'serve_{nt.lower()}'] = s = _serve_zoo(
+                    nt, nets_[nt]['exp'], dev)
+                ok = ok and s['ok']
+            else:
+                ok = False
+        for r in nets_.values():
             r.pop('exp', None)
     torch.cuda.empty_cache()
     out['wall_seconds'] = time.perf_counter() - t_all

@@ -16,7 +16,16 @@ rule covers them: the flax path joined by dots, where
     bias tables and OmniSR's `temperature` keep their names;
   * ENLCN's projection buffers (ENLCA.proj), which are no flax params
     (JAX draws the matrix on every call), are filled from `projection`
-    when it is given.
+    when it is given;
+  * the BatchNorm running statistics (MemNet), flax's `batch_stats`
+    collection (`.../BatchNorm_<i>/{mean,var}`), fill the buffers of the
+    same names from `model_state` when it is given;
+  * a remat lift level (`Checkpoint_MemChain_0`, flax's nn.remat of a
+    submodule) is the submodule itself (`_MemChain_0`): torch's
+    checkpoint renames nothing;
+  * GRL's scanned block pairs (`s{i}_blocks/GRLBlock_{m}/...`, stacked
+    (d/2, ...)) unstack onto the blocks `s{i}_b{2p + m}`; DRRN's shared
+    `rec1` / `rec2` are one conv each on both sides.
 SwinIR's leaves:
   * conv kernels (kh, kw, I, O) become (O, I, kh, kw);
   * LayerNorm `scale` becomes `weight` (patch_norm, the final norm and
@@ -164,18 +173,46 @@ def _zoo_targets(path: Tuple[str, ...], value: np.ndarray,
     return [(name, value)]
 
 
+def _zoo_leaves(tree) -> Iterator[Tuple[Tuple[str, ...], object]]:
+    """A zoo net's flax leaves under the port's module path: remat lift
+    levels taken off, GRL's scanned pairs unstacked."""
+    for path, value in _flatten(tree):
+        path = tuple(re.sub(r'^Checkpoint(\w+_\d+)$', r'\1', p)
+                     for p in path)
+        m = re.fullmatch(r's(\d+)_blocks', path[0])
+        b = re.fullmatch(r'GRLBlock_([01])', path[1]) if m and \
+            len(path) > 2 else None
+        if b:
+            value = np.asarray(value)
+            for p in range(value.shape[0]):
+                blk = f's{m.group(1)}_b{2 * p + int(b.group(1))}'
+                yield (blk,) + path[2:], value[p]
+        else:
+            yield path, value
+
+
 def flax_to_torch(params_np: Dict, model: nn.Module,
-                  projection=None) -> Dict[str, torch.Tensor]:
+                  projection=None, model_state=None
+                  ) -> Dict[str, torch.Tensor]:
     """Nested dict of numpy arrays (a flax param tree, or a tree of the
     same structure: grads, optimizer moments) -> {name: tensor} for
     `model`'s parameters (f32 CPU tensors; load_state_dict moves them
     to the model's device), plus ENLCN's projection buffers filled from
     `projection` (the (nb_features, C/4) matrix of
     srcaco2_tpu/models/enlcn.py:gaussian_orthogonal_random_matrix) when
-    it is given."""
+    it is given, and the BatchNorm statistics from `model_state` (flax's
+    mutable collections, {'batch_stats': ...}, or the batch_stats tree)
+    when it is given."""
     from srcaco2_tpu_torch.models.swinir import SwinIR
     want = {k: v for k, v in model.named_parameters()}
     out = {}
+    leaves = list(_flatten(params_np) if isinstance(model, SwinIR)
+                  else _zoo_leaves(params_np))
+    if model_state is not None:
+        stats = model_state.get('batch_stats', model_state)
+        want.update({k: v for k, v in model.named_buffers()
+                     if k.rsplit('.', 1)[-1] in ('mean', 'var')})
+        leaves += list(_zoo_leaves(stats))
     if projection is not None:
         proj = np.asarray(projection, np.float32)
         for k, v in model.named_buffers():
@@ -185,7 +222,7 @@ def flax_to_torch(params_np: Dict, model: nn.Module,
                                      f'model {tuple(v.shape)}')
                 want[k] = v
                 out[k] = torch.from_numpy(np.array(proj))
-    for path, value in _flatten(params_np):
+    for path, value in leaves:
         value = np.asarray(value, np.float32)
         if isinstance(model, SwinIR):
             targets = _targets(path, value)

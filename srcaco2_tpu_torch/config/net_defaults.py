@@ -43,6 +43,38 @@ def _omnisr(args):
                 block_num=4, pe=True, ffn_bias=True)
 
 
+def _nlsn(args):
+    return dict(upscale=args['scale'], in_chans=args['n_channels'],
+                n_resblocks=32, n_feats=256, n_hashes=4, chunk_size=144,
+                res_scale=0.1, img_range=1.0)
+
+
+def _grl(args):
+    return dict(upscale=args['scale'], in_chans=args['n_channels'],
+                img_size=args['h_size'] // args['scale'], window_size=8,
+                embed_dim=180, mlp_ratio=2, img_range=1.0,
+                depths=[4, 4, 8, 8, 8, 4, 4],
+                num_heads_window=[3, 3, 3, 3, 3, 3, 3],
+                num_heads_stripe=[3, 3, 3, 3, 3, 3, 3],
+                upsampler=constants.US_PIXEL_SHUFFLE, conv_type='1conv',
+                out_proj_type='linear', anchor_window_down_factor=2,
+                qkv_proj_type='linear', anchor_proj_type='avgpool',
+                local_connection=True)
+
+
+def _memnet(args):
+    # remat_passes: checkpoint each chain pass (the JAX package's default;
+    # its R^2 recursion keeps every block's maps at HR size without)
+    return dict(upscale=args['scale'], in_chans=args['n_channels'],
+                num_memory_blocks=6, num_residual_blocks=6,
+                remat_passes=True)
+
+
+def _drrn(args):
+    return dict(upscale=args['scale'], in_chans=args['n_channels'],
+                num_residual_units=25)
+
+
 def _upscale_in_chans(args):
     return dict(upscale=args['scale'], in_chans=args['n_channels'])
 
@@ -57,10 +89,19 @@ _DEFAULTS = {
     constants.OMNISR: _omnisr,
     constants.VDSR: _upscale_in_chans,
     constants.SRCNN: lambda args: dict(in_chans=args['n_channels']),
+    constants.NLSN: _nlsn,
+    constants.GRL: _grl,
+    constants.DRRN: _drrn,
+    constants.MEMNET: _memnet,
 }
 
 # the nets define_g and init_net_g build
 PORTED_NETS = tuple(_DEFAULTS)
+
+# options a net reads that init_net_g leaves unset (define_g's default
+# applies; the JAX package's defaults do not set them either): each can
+# be given on the command line or in a config's netG
+NET_OPTIONS = {constants.SRFBN: {'srfbn_remat_steps': False}}
 
 
 def init_net_g(netG: dict, args: dict) -> dict:

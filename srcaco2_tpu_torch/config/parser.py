@@ -18,7 +18,7 @@ from typing import Any, Dict, Optional
 from srcaco2_tpu_torch import constants
 from srcaco2_tpu_torch.config import yaml_io
 from srcaco2_tpu_torch.config.defaults import get_config
-from srcaco2_tpu_torch.config.net_defaults import safe_str_var
+from srcaco2_tpu_torch.config.net_defaults import NET_OPTIONS, safe_str_var
 
 
 def _str2bool(v) -> bool:
@@ -93,6 +93,11 @@ def build_parser(config: dict) -> argparse.ArgumentParser:
                 continue
             _add_flag(parser, k, v)
             seen.add(k)
+    # the net's options that its defaults leave unset (srfbn_remat_steps)
+    for k, v in NET_OPTIONS.get(config['netG']['net_type'], {}).items():
+        if k not in seen:
+            _add_flag(parser, k, v)
+            seen.add(k)
     return parser
 
 
@@ -113,6 +118,8 @@ def overlay(config: dict, cli: Dict[str, Any]) -> dict:
             config['netG'][k] = _coerce(config['netG'][k], v)
         elif k in config['train']:
             config['train'][k] = _coerce(config['train'][k], v)
+        elif k in NET_OPTIONS.get(config['netG']['net_type'], {}):
+            config['netG'][k] = v
     return config
 
 

@@ -17,10 +17,14 @@ ENLCN = 'ENLCN'
 ACT = 'ACT'
 OMNISR = 'OmniSR'
 PROSR = 'ProSR'
+NLSN = 'NLSN'
+GRL = 'GRL'
+DRRN = 'DRRN'
+MEMNET = 'MemNet'
 # every net of the JAX zoo (config/net_defaults.py:PORTED_NETS lists the
 # ported ones and raises for the others)
-MODELS = [SWINIR, 'DSRSplines', 'CSRCNN', DFCAN, SRCNN, VDSR, 'MemNet',
-          'DRRN', OMNISR, 'GRL', ENLCN, ACT, 'NLSN', 'EDSR_LIIF',
+MODELS = [SWINIR, 'DSRSplines', 'CSRCNN', DFCAN, SRCNN, VDSR, MEMNET,
+          DRRN, OMNISR, GRL, ENLCN, ACT, NLSN, 'EDSR_LIIF',
           SRFBN, 'DBPN', MSLAPSR, PROSR]
 NETTYPE_METHOD = {m: m for m in MODELS}
 INIT_W_DEFAULT = 'init_w_default'

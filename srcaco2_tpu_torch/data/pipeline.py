@@ -19,7 +19,7 @@ and EDT sampling, and per-pixel inverse-color-frequency weights (ppiw).
 """
 import functools
 from dataclasses import dataclass
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -106,10 +106,13 @@ def _u8_quant(x01: torch.Tensor) -> torch.Tensor:
 
 class Draws(NamedTuple):
     """A batch's random choices, (B,) int64 each: the HR patch origin
-    (row x0, column y0) and the dihedral mode in [0, 8)."""
+    (row x0, column y0) and the dihedral mode in [0, 8); and `lsh`, the
+    CPU generator of the step's hash rotations (NLSN,
+    utils/reproducibility.lsh_generator; None: the model's own)."""
     x0: torch.Tensor
     y0: torch.Tensor
     mode: torch.Tensor
+    lsh: Optional[torch.Generator] = None
 
 
 def draw(gen: torch.Generator, n: int, cfg: PipeConfig,
@@ -160,7 +163,7 @@ def assemble(hr_u8: torch.Tensor, lr_u8: torch.Tensor, idxs: torch.Tensor,
     l_to_h_img and l_to_h_img_aug (B,C,hs,hs)."""
     check_ported(cfg)
     dev = hr_u8.device
-    if any(t.device != dev for t in (lr_u8, idxs, *draws)):
+    if any(t.device != dev for t in (lr_u8, idxs, *draws[:3])):
         raise ValueError(f'stacks, indices and draws must all be on {dev}')
     sf, hs, ls = cfg.scale, cfg.h_size, cfg.l_size
     x0, y0 = draws.x0, draws.y0

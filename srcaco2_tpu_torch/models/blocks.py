@@ -295,6 +295,143 @@ class MeanShift(nn.Module):
         return x + self.sign * mean[:, None, None]
 
 
+def _bn_normalize(xs, mean, var, weight, bias, eps):
+    """(x - mean) * (rsqrt(var + eps) * scale) + bias per channel of an
+    NCHW x, in flax's order, in xs's dtype."""
+    mul = torch.rsqrt(var + eps) * weight.to(xs.dtype)
+    return (xs - mean[:, None, None]) * mul[:, None, None] \
+        + bias.to(xs.dtype)[:, None, None]
+
+
+class _BatchNormTrain(torch.autograd.Function):
+    """BatchNorm over the batch statistics: forward as flax computes it
+    (f32 statistics, the fast biased variance), and the exact gradient
+    of that function in the backward, from the input and the per-channel
+    mean and rsqrt only. Autograd over the forward's own ops would keep
+    four f32 copies of every normalised map for the backward (51 GB for
+    MemNet's step at batch 64 with its passes checkpointed)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, out_dtype):
+        xs = x.to(stat_dtype(x.dtype))
+        mean = xs.mean(dim=(0, 2, 3))
+        var = torch.clamp((xs * xs).mean(dim=(0, 2, 3)) - mean * mean,
+                          min=0.0)
+        y = _bn_normalize(xs, mean, var, weight, bias, eps)
+        ctx.save_for_backward(x, weight, mean, torch.rsqrt(var + eps))
+        ctx.mark_non_differentiable(mean, var)
+        return y.to(out_dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, gy, _gmean, _gvar):
+        x, weight, mean, rstd = ctx.saved_tensors
+        sd = stat_dtype(x.dtype)
+        g = gy.to(sd)
+        xhat = (x.to(sd) - mean[:, None, None]) * rstd[:, None, None]
+        n = x.numel() // x.shape[1]
+        dbias = g.sum(dim=(0, 2, 3))
+        dweight = (g * xhat).sum(dim=(0, 2, 3))
+        dx = (weight.to(sd) * rstd)[:, None, None] * (
+            g - (dbias / n)[:, None, None]
+            - xhat * (dweight / n)[:, None, None])
+        return dx.to(x.dtype), dweight, dbias, None, None
+
+
+class BatchNorm(nn.Module):
+    """flax nn.BatchNorm(use_running_average=not train, momentum=0.9,
+    epsilon=1e-5, dtype=dtype) over the channels of an NCHW input.
+
+    In training the batch statistics are taken over (N, H, W) in f32
+    (stat_dtype; flax's force_float32_reductions): the mean and flax's
+    fast biased variance max(0, E[x^2] - E[x]^2), which normalise the
+    input (_BatchNormTrain); then each running statistic moves as
+    ra <- 0.9 ra + 0.1 batch (torch's `momentum` weighs the new value,
+    and its running_var takes the unbiased variance: F.batch_norm is not
+    this update). In evaluation the running statistics normalise. The
+    output is (x - mean) * (rsqrt(var + eps) * scale) + bias in f32,
+    rounded to `dtype`, in flax's order.
+
+    The running statistics are persistent buffers under flax's names
+    (`mean`, `var`, from its batch_stats collection), updated in place
+    with copy_: the trainer holds the model's buffers once, and saves,
+    evaluates and checkpoints through those tensors. `update_stats`
+    off (set by the checkpointed passes' recompute, see
+    `no_stat_updates`) normalises with the batch statistics as in
+    training and leaves the running ones untouched: the recompute of a
+    checkpointed forward must not move them a second time."""
+
+    MOMENTUM = 0.9
+
+    def __init__(self, features: int, *, eps: float = 1e-5,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        self.eps, self.dtype = eps, dtype
+        self.update_stats = True
+        self.weight = nn.Parameter(torch.ones(features, device=device))
+        self.bias = nn.Parameter(torch.zeros(features, device=device))
+        self.register_buffer('mean', torch.zeros(features, device=device))
+        self.register_buffer('var', torch.ones(features, device=device))
+
+    def reset_parameters(self, gen: torch.Generator):
+        del gen
+        nn.init.ones_(self.weight)
+        nn.init.zeros_(self.bias)
+        with torch.no_grad():
+            self.mean.zero_()
+            self.var.fill_(1.0)
+
+    def forward(self, x):
+        if not self.training:
+            sd = stat_dtype(x.dtype)
+            return _bn_normalize(x.to(sd), self.mean.to(sd),
+                                 self.var.to(sd), self.weight, self.bias,
+                                 self.eps).to(self.dtype)
+        y, mean, var = _BatchNormTrain.apply(x, self.weight, self.bias,
+                                             self.eps, self.dtype)
+        if self.update_stats:
+            m = self.MOMENTUM
+            with torch.no_grad():
+                self.mean.copy_(m * self.mean + (1 - m) * mean)
+                self.var.copy_(m * self.var + (1 - m) * var)
+        return y
+
+
+class no_stat_updates:
+    """Context: every BatchNorm of `module` leaves its running statistics
+    as they are (the recompute of a checkpointed forward)."""
+
+    def __init__(self, module: nn.Module):
+        self.bns = [m for m in module.modules() if isinstance(m, BatchNorm)]
+
+    def __enter__(self):
+        self.prev = [m.update_stats for m in self.bns]
+        for m in self.bns:
+            m.update_stats = False
+
+    def __exit__(self, *exc):
+        for m, p in zip(self.bns, self.prev):
+            m.update_stats = p
+
+
+def checkpointed(module: nn.Module, *args):
+    """module(*args) under torch.utils.checkpoint (use_reentrant=False):
+    its activations are recomputed in the backward instead of kept. The
+    first run updates the module's BatchNorm statistics; the recompute
+    does not (flax's remat drops the recompute's state changes, so the
+    statistics move once per application, as without the checkpoint)."""
+    from torch.utils.checkpoint import checkpoint
+    runs = []
+
+    def run(*a):
+        if runs:
+            with no_stat_updates(module):
+                return module(*a)
+        runs.append(1)
+        return module(*a)
+
+    return checkpoint(run, *args, use_reentrant=False)
+
+
 class FlaxNamed(nn.Module):
     """A module whose children are registered under flax's auto-names:
     `<Class>_<n>`, one counter per class name in creation order (flax's

@@ -72,7 +72,9 @@ def _srfbn(netG, nt, kw):
                  upscale=_p(netG, nt, 'upscale'),
                  num_features=_p(netG, nt, 'num_features'),
                  num_steps=_p(netG, nt, 'num_steps'),
-                 num_groups=_p(netG, nt, 'num_groups'), **kw)
+                 num_groups=_p(netG, nt, 'num_groups'),
+                 remat_steps=bool(netG.get('srfbn_remat_steps', False)),
+                 **kw)
 
 
 def _mslapsr(netG, nt, kw):
@@ -96,11 +98,57 @@ def _act(netG, nt, kw):
                expansion_ratio=_p(netG, nt, 'expansion_ratio'), **kw)
 
 
+def _nlsn(netG, nt, kw):
+    from srcaco2_tpu_torch.models.nlsn import NLSN
+    return NLSN(in_chans=_p(netG, nt, 'in_chans'),
+                upscale=_p(netG, nt, 'upscale'),
+                n_resblocks=_p(netG, nt, 'n_resblocks'),
+                n_feats=_p(netG, nt, 'n_feats'),
+                n_hashes=_p(netG, nt, 'n_hashes'),
+                chunk_size=_p(netG, nt, 'chunk_size'),
+                res_scale=_p(netG, nt, 'res_scale'), **kw)
+
+
+def _grl(netG, nt, kw):
+    from srcaco2_tpu_torch.models.grl import GRL
+    return GRL(in_chans=_p(netG, nt, 'in_chans'),
+               upscale=_p(netG, nt, 'upscale'),
+               window_size=_p(netG, nt, 'window_size'),
+               embed_dim=_p(netG, nt, 'embed_dim'),
+               depths=tuple(_p(netG, nt, 'depths')),
+               num_heads_window=tuple(_p(netG, nt, 'num_heads_window')),
+               num_heads_stripe=tuple(_p(netG, nt, 'num_heads_stripe')),
+               mlp_ratio=float(_p(netG, nt, 'mlp_ratio')),
+               anchor_window_down_factor=_p(netG, nt,
+                                            'anchor_window_down_factor'),
+               local_connection=_p(netG, nt, 'local_connection'),
+               upsampler=_p(netG, nt, 'upsampler'), **kw)
+
+
+def _drrn(netG, nt, kw):
+    from srcaco2_tpu_torch.models.cnn_pre import DRRN
+    return DRRN(in_chans=_p(netG, nt, 'in_chans'),
+                upscale=_p(netG, nt, 'upscale'),
+                num_residual_units=_p(netG, nt, 'num_residual_units'), **kw)
+
+
+def _memnet(netG, nt, kw):
+    from srcaco2_tpu_torch.models.cnn_pre import MemNet
+    return MemNet(in_chans=_p(netG, nt, 'in_chans'),
+                  upscale=_p(netG, nt, 'upscale'),
+                  num_memory_blocks=_p(netG, nt, 'num_memory_blocks'),
+                  num_residual_blocks=_p(netG, nt, 'num_residual_blocks'),
+                  remat_passes=bool(netG.get('memnet_remat_passes', True)),
+                  **kw)
+
+
 _BUILD = {constants.SWINIR: _swinir, constants.SRCNN: _srcnn,
           constants.VDSR: _vdsr, constants.DFCAN: _dfcan,
           constants.ENLCN: _enlcn, constants.OMNISR: _omnisr,
           constants.SRFBN: _srfbn, constants.MSLAPSR: _mslapsr,
-          constants.ACT: _act}
+          constants.ACT: _act, constants.NLSN: _nlsn,
+          constants.GRL: _grl, constants.DRRN: _drrn,
+          constants.MEMNET: _memnet}
 assert set(_BUILD) == set(PORTED_NETS)
 
 

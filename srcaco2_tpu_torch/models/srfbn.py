@@ -4,13 +4,16 @@ a FeedbackBlock (num_groups up / down projection pairs with dense 1x1
 transitions; its hidden state fed back across steps) unrolled num_steps
 times with shared weights; every step emits bilinear(x) + its
 reconstruction, and all steps' outputs feed the curriculum loss.
+`remat_steps` (JAX's nn.remat(FeedbackBlock)) runs each feedback step
+under torch.utils.checkpoint in training: the step's activations are
+recomputed in the backward, the same math with less memory.
 Transposed-conv kernel, stride and padding by scale: x2 (6, 2, 2), x4
 (8, 4, 2), x8 (12, 8, 2). NCHW; submodules carry the flax names."""
 import torch
 import torch.nn as nn
 
-from srcaco2_tpu_torch.models.blocks import (ConvT, PReLU, reset_all,
-                                             raw_conv)
+from srcaco2_tpu_torch.models.blocks import (ConvT, PReLU, checkpointed,
+                                             reset_all, raw_conv)
 from srcaco2_tpu_torch.ops import resize as R
 
 _KSP = {2: (6, 2, 2), 4: (8, 4, 2), 8: (12, 8, 2)}
@@ -84,12 +87,14 @@ class FeedbackBlock(nn.Module):
 class SRFBN(nn.Module):
     def __init__(self, in_chans: int = 1, upscale: int = 2,
                  num_features: int = 64, num_steps: int = 4,
-                 num_groups: int = 6, *, dtype=torch.float32, device=None):
+                 num_groups: int = 6, remat_steps: bool = False, *,
+                 dtype=torch.float32, device=None):
         super().__init__()
         k, s, p = _KSP[upscale]
         f = num_features
         kw = dict(dtype=dtype, device=device)
         self.upscale, self.num_steps, self.dtype = upscale, num_steps, dtype
+        self.remat_steps = remat_steps
         self.conv_in = _CB(in_chans, 4 * f, 3, **kw)
         self.feat_in = _CB(4 * f, f, 1, **kw)
         self.feedback = FeedbackBlock(f, num_groups, upscale, **kw)
@@ -106,7 +111,10 @@ class SRFBN(nn.Module):
         y = self.feat_in(self.conv_in(x))
         hidden = y          # reset: the hidden state starts as the input
         outs = []
+        remat = self.remat_steps and self.training and \
+            torch.is_grad_enabled()
         for _ in range(self.num_steps):
-            hidden = self.feedback(y, hidden)
+            hidden = (checkpointed(self.feedback, y, hidden)
+                      if remat else self.feedback(y, hidden))
             outs.append(inter_res + self.conv_out(self.out(hidden)))
         return {'out': outs[-1], 'intermediate_outs': outs}

@@ -135,7 +135,7 @@ def Dense(in_features: int, out_features: int, *, dtype=torch.float32,
                         dtype=dtype, device=device)
 
 
-def _flax_gelu(u: torch.Tensor) -> torch.Tensor:
+def _flax_gelu(u: torch.Tensor, tanh=torch.tanh) -> torch.Tensor:
     """jax.nn.gelu(approximate=True) (flax nn.gelu) in u's dtype, one
     rounding per op: x * (0.5 * (1 + tanh(c * (x + 0.044715 * x^3)))),
     with x^3 = x * (x * x) as lax.integer_pow expands it and the
@@ -143,7 +143,7 @@ def _flax_gelu(u: torch.Tensor) -> torch.Tensor:
     c = _const(math.sqrt(2 / math.pi), u.dtype)
     cube = u * (u * u)
     inner = u + _const(0.044715, u.dtype) * cube
-    return u * (0.5 * (1.0 + torch.tanh(c * inner)))
+    return u * (0.5 * (1.0 + tanh(c * inner)))
 
 
 def _softmax(x: torch.Tensor) -> torch.Tensor:

@@ -80,13 +80,23 @@ def compute_model_loss(net_type: str, master: MasterLoss, outputs: dict,
 
 
 def loss_and_grads(model, master: MasterLoss, net_type: str, params: dict,
-                   batch: dict, epoch, elb_t, netG: dict = None):
+                   batch: dict, epoch, elb_t, netG: dict = None,
+                   lsh: torch.Generator = None):
     """(loss, holder, prediction, {name: grad}) of one forward and
     backward in training mode; a parameter the loss does not reach gets
-    a zero grad."""
+    a zero grad. The forward updates the model's BatchNorm statistics
+    (MemNet) in place, as JAX's mutable batch_stats, on a skipped step
+    too. `lsh` is the generator of the forward's hash rotations (NLSN's
+    lsh_generator; JAX's 'lsh' rng stream)."""
     model.train()
     x = net_input(net_type, batch, netG)
-    outputs = model_outputs(model(x))
+    if hasattr(model, 'lsh_generator'):
+        model.lsh_generator = lsh
+    try:
+        outputs = model_outputs(model(x))
+    finally:
+        if hasattr(model, 'lsh_generator'):
+            model.lsh_generator = None
     total, holder = compute_model_loss(net_type, master, outputs, batch,
                                        params, epoch, elb_t)
     names = list(params)
@@ -105,7 +115,8 @@ def make_train_step(model, master: MasterLoss, tx, net_type: str,
     """The train step: (state, hr_u8, lr_u8, idxs, draws) -> (state,
     loss holder, ok flag), where draws = pipeline.draw(gen, ...) are the
     batch's patch origins and dihedral modes (JAX derives them from a
-    key inside the step). state.params must be the model's parameters;
+    key inside the step) and, in draws.lsh, the generator of the step's
+    hash rotations (NLSN). state.params must be the model's parameters;
     the step updates them, the optimizer state and the EMA in place.
 
     steps_per_call = K > 1, the superstep (JAX: a lax.scan over K steps
@@ -124,7 +135,7 @@ def make_train_step(model, master: MasterLoss, tx, net_type: str,
         batch = P.assemble(hr_u8, lr_u8, idxs, draws, pipe_cfg)
         loss, holder, pred, grads = loss_and_grads(
             model, master, net_type, state.params, batch, epoch,
-            state.elb_t, netG)
+            state.elb_t, netG, lsh=draws.lsh)
         with torch.no_grad():
             # non-finite loss or grads -> skip the update
             ok = torch.isfinite(loss) & all_finite(grads)

@@ -10,7 +10,8 @@ end, then the ELB t update, test_epoch_freq and plot_epoch_freq; the
 final save, validation, test on the best model plus the bicubic rows,
 `passed.txt` and `LOG.txt`.
 
-Random draws: each step's from a generator seeded from (myseed, step),
+Random draws: each step's from a generator seeded from (myseed, step)
+(and its hash rotations, NLSN's, from another),
 each epoch's permutation from one seeded from (myseed, epoch)
 (utils/reproducibility.py), so the superstep, one step per call and a
 resumed run follow one trajectory on a device.
@@ -415,7 +416,9 @@ class Experiment:
             idxs = perm[i_in_epoch * bs:(i_in_epoch + k) * bs].reshape(k, bs)
             draws = [P.draw(R.step_generator(self.seed, step + j,
                                              self.device),
-                            bs, self.pipe_cfg, hr_hw) for j in range(k)]
+                            bs, self.pipe_cfg, hr_hw)._replace(
+                                lsh=R.lsh_generator(self.seed, step + j))
+                     for j in range(k)]
             if not window:
                 window.update(first=step, t0=time.perf_counter())
                 if self.device.type == 'cuda':

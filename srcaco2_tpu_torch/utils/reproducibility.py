@@ -7,9 +7,11 @@ JAX derives every step's patch origins and dihedral modes from
 call, of one step per call, and a resumed run all follow one trajectory.
 The port keeps that property with one torch.Generator per draw, seeded
 from (myseed, stream, index): `step_generator` for a step's draws (on the
-card, where the stacks live), `epoch_generator` for an epoch's
-permutation. A single stateful generator would tie the draws to the
-order of calls and break resume and the superstep. The port cannot
+card, where the stacks live), `lsh_generator` for a step's hash
+rotations (NLSN; on the CPU, so that the card and the CPU draw alike),
+`epoch_generator` for an epoch's permutation. A single stateful
+generator would tie the draws to the order of calls and break resume
+and the superstep. The port cannot
 replay JAX's draws (torch and JAX have different generators); the tests
 hold the trainer's parts against JAX with the draws injected.
 """
@@ -18,7 +20,7 @@ import random
 import numpy as np
 import torch
 
-_STEP, _EPOCH = 1, 2
+_STEP, _EPOCH, _LSH = 1, 2, 3
 
 
 def set_seed(seed: int):
@@ -44,6 +46,12 @@ def _generator(seed: int, device) -> torch.Generator:
 def step_generator(seed: int, step: int, device) -> torch.Generator:
     """The generator of train step `step`'s draws (pipeline.draw)."""
     return _generator(derived_seed(seed, _STEP, step), device)
+
+
+def lsh_generator(seed: int, step: int) -> torch.Generator:
+    """The CPU generator of train step `step`'s hash rotations (JAX: the
+    step key's 'lsh' stream, train/steps.py:120-122)."""
+    return _generator(derived_seed(seed, _LSH, step), 'cpu')
 
 
 def epoch_generator(seed: int, epoch: int, device) -> torch.Generator:

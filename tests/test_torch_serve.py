@@ -127,6 +127,8 @@ def test_port_scan_covers_the_eval_modules():
             'srcaco2_tpu_torch/models/enlcn.py',
             'srcaco2_tpu_torch/models/act.py',
             'srcaco2_tpu_torch/models/omnisr.py',
+            'srcaco2_tpu_torch/models/nlsn.py',
+            'srcaco2_tpu_torch/models/grl.py',
             'srcaco2_tpu_torch/ops/patches.py',
             'chip_smoke.py'} <= scanned
 
