@@ -102,11 +102,13 @@ non-zero:
                 2 epochs: 8 steps; K5 in f32 on 256x256 LR validation);
                 ms per step, patches/s and peak memory
   zoo_check     each zoo net (DFCAN, SRCNN, VDSR, MSLapSRN, SRFBN, ENLCN,
-                ACT, OmniSR, NLSN, GRL, DRRN, MemNet) at full width, x8
-                (the depths of seven of them cut: ZOO_CHECK_NETG), from
+                ACT, OmniSR, NLSN, GRL, DRRN, MemNet, DBPN, ProSR,
+                DSR-Splines, CSR-CNN, EDSR-LIIF; and CSR-CNN's snet_type3
+                and segmentation task with ce) at full width, x8 (the
+                depths of nine of them cut: ZOO_CHECK_NETG), from
                 the same seeded weights on the card and the CPU: one
                 training step's loss and grads at batch 4 of 16x16 LR
-                (SRCNN: the 128x128 pre-upscale), l2 + 5 SSIM(19), f32
+                (SRCNN, CSR-CNN: the 128x128 pre-upscale), l2 + 5 SSIM(19), f32
                 with TF32 off (1e-5 /
                 1e-4; a grad over that held in float64 on both devices)
                 and bf16 (1e-2 / 3e-2 by windowed_check's floor rule where
@@ -114,29 +116,36 @@ non-zero:
                 bf16 noise); every op of the card's f32 and bf16 steps
                 held to float64 on its own inputs (op_replay); an f32
                 eval forward at 64x64 LR (1e-5 of max |out|); SRFBN's
-                4 steps and MSLapSRN's 2 levels in
+                4 steps and MSLapSRN's and ProSR's 2 levels in
                 the loss; NLSN with the same injected rotations on both
-                devices and its hash codes compared (where any differ,
-                the step or forward is held op by op: op_replay holds
-                argmax and the stable sort equal); no kernel launch; see
-                zoo_check
+                devices and its hash codes compared, DSR-Splines' knots
+                compared (where any differ, the step or forward is held
+                op by op: op_replay holds argmax, floor and the stable
+                sort equal); no kernel launch; see zoo_check
   zoo_train     each zoo net's train step (bf16 over f32 params): DFCAN
                 as bench.py's step (batch 128, 10 timed steps), the
-                others at the README's batch 64 (5 timed steps; NLSN,
-                GRL, DRRN and MemNet 3; MemNet with its per-pass
-                checkpoint); ms/step, patches/s, peak memory; the device
-                time of one step by kernel and the device's busy share
-                for DFCAN (with the FFT's share), ACT and OmniSR; then
-                SRFBN with srfbn_remat_steps: ms/step and peak memory
-                beside the default's, one step's loss and grads bit-equal
-                to the plain step's
+                others at the README's batch 64 (5 timed steps; from NLSN
+                on 3; MemNet with its per-pass checkpoint, DBPN with its
+                per-block one); ms/step, patches/s, peak memory; the
+                device time of one step by kernel and the device's busy
+                share for ZOO_PROFILED (DFCAN with the FFT's share); then
+                SRFBN with srfbn_remat_steps and DBPN without
+                dbpn_remat_blocks: ms/step and peak memory beside the
+                default's, one step's loss and grads bit-equal to the
+                default step's; EDSR-LIIF's gather backward at its step's
+                shape run twice, bit-equal, against the CPU's and
+                index_add_
   entry_zoo     `main` with the README's flags (x8, batch 64, amp, l2 + 5
                 SSIM(19), ROI eval and selection) and `eval` for each zoo
                 net on one synthetic dataset (128 / 4 / 4 images of
-                512^2, 1 epoch of 2 steps), four nets at a time; the
-                gates of entry_x8 with no kernel launch; SRCNN's and
-                MemNet's best models served through SRServer (3 requests,
-                a ragged tail; MemNet with its saved running statistics)
+                512^2, 1 epoch of 2 steps), up to six nets at a time,
+                each process held to its share of the card and the
+                running shares within its free memory; the gates of
+                entry_x8 with no kernel launch; SRCNN's,
+                MemNet's and CSR-CNN's best models served through
+                SRServer (3 requests, a ragged tail; MemNet with its
+                saved running statistics; SRCNN and CSR-CNN on the
+                pre-upscale)
   kernels       the kernels line (K1-K6, one JSON object)
 followed by the nvidia-smi line and, last, the {"ok": true, ...} line.
 Imports nothing of JAX or of the JAX package.
@@ -148,7 +157,6 @@ import os
 import statistics
 import subprocess
 import sys
-import threading
 import time
 
 # H100 SXM, NVIDIA data sheet: dense bf16 tensor-core peak, HBM3 rate
@@ -706,25 +714,32 @@ def kernel_time_pair(dev, gen):
         shape=list(xd.shape), dtype='bf16', shifts=[0, WS // 2])
 
 
-def profile_device(fn, wall_ms, groups=None):
+def profile_device(fn, wall_ms, groups=None, host_ops=True):
     """Device time of one call of fn by device activity (kernels and
     copies, torch.profiler), and the device's busy share of the call's
     unprofiled wall time `wall_ms`; with `groups` ({label: substrings}),
     also the device ms and share of the activities whose lower-cased
-    name holds one of a label's substrings (`group_ms`)."""
+    name holds one of a label's substrings (`group_ms`). With host_ops
+    False the profiler traces the device alone (the host's ops of a
+    step of thousands cost tens of seconds to trace and sort), and
+    traces the host too only where that recorded no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
+    rows = []
+    for acts in (([ProfilerActivity.CUDA],) if not host_ops else ()) + (
+            [ProfilerActivity.CPU, ProfilerActivity.CUDA],):
+        with profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and e.self_device_time_total > 0]
+        if rows:
+            break
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
     if device_ms <= 0:
@@ -1545,10 +1560,20 @@ def windowed_profile(dev, smi, steps=5):
 # the zoo (every ported net but SwinIR) at its full default width, x8 on
 # 16x16 LR patches (h_size 128), one channel
 ZOO = ('DFCAN', 'SRCNN', 'VDSR', 'MSLapSRN', 'SRFBN', 'ENLCN', 'ACT',
-       'OmniSR', 'NLSN', 'GRL', 'DRRN', 'MemNet')
-# zoo_train's timed steps: DFCAN's as bench.py's, the second part of the
+       'OmniSR', 'NLSN', 'GRL', 'DRRN', 'MemNet', 'DBPN', 'ProSR',
+       'DSRSplines', 'CSRCNN', 'EDSR_LIIF')
+# zoo_check's variants of a net: name -> (net, netG over its defaults,
+# loss flags over zoo_args'): CSR-CNN's grouped small CNN and its
+# segmentation task with the ce loss
+ZOO_VARIANTS = {
+    'CSRCNN_snet3': ('CSRCNN', dict(csrcnn_net_type='snet_type3'), {}),
+    'CSRCNN_seg': ('CSRCNN', dict(net_task='segmentation'), dict(ce=True))}
+ZOO_CHECKED = ZOO + tuple(ZOO_VARIANTS)
+# zoo_train's timed steps: DFCAN's as bench.py's, the later parts of the
 # zoo fewer than the first
-ZOO_STEPS = {'DFCAN': 10, 'NLSN': 3, 'GRL': 3, 'DRRN': 3, 'MemNet': 3}
+ZOO_STEPS = {'DFCAN': 10, 'NLSN': 3, 'GRL': 3, 'DRRN': 3, 'MemNet': 3,
+             'DBPN': 3, 'ProSR': 3, 'DSRSplines': 3, 'CSRCNN': 3,
+             'EDSR_LIIF': 3}
 # zoo_check's depth cuts (full width), which keep the whole script in
 # about two thirds of its time limit: at full depth the CPU side and the
 # float64 op replay of MemNet (216 block applications at HR size) took
@@ -1573,14 +1598,21 @@ ZOO_CHECK_NETG = {
     'OmniSR': dict(omnisr_res_num=2),
     'SRFBN': dict(srfbn_num_groups=3),
     'NLSN': dict(nlsn_n_resblocks=16),
-    'ACT': dict(act_n_resblocks=4)}
-# intermediate outputs at x8: SRFBN's 4 steps, MSLapSRN's first 2 levels
-ZOO_LEVELS = {'SRFBN': 4, 'MSLapSRN': 2}
+    'ACT': dict(act_n_resblocks=4),
+    # DBPN one of its 3 stages (13 projection blocks), ProSR 1 of the 9
+    # dense residual blocks of its first level (and the others' whole)
+    'DBPN': dict(dbpn_num_stages=1),
+    'ProSR': dict(prosr_level_config={8: [[8], [8] * 3, [8]]})}
+# intermediate outputs at x8: SRFBN's 4 steps, MSLapSRN's and ProSR's
+# first 2 levels
+ZOO_LEVELS = {'SRFBN': 4, 'MSLapSRN': 2, 'ProSR': 2}
 # README.md:91-100's batch, and bench.py's DFCAN step (bench.py:221-240)
 ZOO_BATCH, DFCAN_BATCH = 64, TRAIN_B
-# the nets whose train step zoo_train profiles: bench.py's, and the
-# slowest steps of each part of the zoo
-ZOO_PROFILED = ('DFCAN', 'ACT', 'OmniSR', 'GRL', 'MemNet')
+# the nets whose train step zoo_train profiles: bench.py's, the slowest
+# steps of each part of the zoo, DBPN (cuDNN's k12 / s8 strided and
+# transposed convs) and EDSR-LIIF (the gather and its f32 segment sums)
+ZOO_PROFILED = ('DFCAN', 'ACT', 'OmniSR', 'GRL', 'MemNet', 'DBPN',
+                'EDSR_LIIF')
 # zoo_check's bf16 control: the CPU's step again from weights moved by
 # ZOO_JITTER relative; where it moves more than ZOO_NOISE_SHARE of the
 # grads beyond the tolerance from the CPU's first run, the per-grad rule
@@ -1600,9 +1632,13 @@ def zoo_args(nt, amp):
     return args
 
 
-def zoo_check_args(nt, amp):
-    """zoo_args with zoo_check's depth cut (ZOO_CHECK_NETG)."""
+def zoo_check_args(name, amp):
+    """zoo_args of a net or a variant (ZOO_VARIANTS) with zoo_check's
+    depth cut (ZOO_CHECK_NETG)."""
+    nt, netg, flags = ZOO_VARIANTS.get(name, (name, {}, {}))
     args = zoo_args(nt, amp)
+    args.update(flags)
+    args['netG'].update(netg)
     args['netG'].update(ZOO_CHECK_NETG.get(nt, {}))
     return args
 
@@ -1799,17 +1835,28 @@ def _levels_check(nt, model, master, batch, loss):
                     and abs(mean - loss) <= 1e-4 * abs(loss)))
 
 
-def nlsn_probe(model, length, seed=21):
-    """For an NLSN: its rotations set to fixed draws (one per attention
-    layer, from a CPU generator seeded `seed`, for `length` positions), so
-    that the card and the CPU hash with the same ones, and a list that
-    each layer's hash codes are appended to (CPU copies) as the forward
-    runs. [] and nothing changed for another net."""
+def code_probe(model, length, seed=21):
+    """The discrete codes a forward computes, to count apart between the
+    card and the CPU: a list that they are appended to (CPU copies) as
+    the forward runs. For an NLSN its rotations are set to fixed draws
+    (one per attention layer, from a CPU generator seeded `seed`, for
+    `length` positions), so that both devices hash with the same ones,
+    and each layer's hash codes are recorded; for a DSR-Splines the knot
+    of each pixel (its masks' argmax). [] and nothing changed for
+    another net."""
     import torch
+    from srcaco2_tpu_torch.models.dsr_splines import DSRSplines
     from srcaco2_tpu_torch.models.nlsn import NonLocalSparseAttention
+    codes = []
+    if isinstance(model, DSRSplines):
+        def masks(x_up, fn=model.masks):
+            m = fn(x_up)
+            codes.append(m.argmax(1).cpu())
+            return m
+        model.masks = masks
+        return codes
     layers = [m for m in model.modules()
               if isinstance(m, NonLocalSparseAttention)]
-    codes = []
     if not layers:
         return codes
     g = torch.Generator().manual_seed(seed)
@@ -1825,27 +1872,28 @@ def nlsn_probe(model, length, seed=21):
 
 
 def codes_differ(a, b):
-    """(positions whose hash code differs, positions) over two runs'
-    recorded codes."""
+    """(positions whose code differs, positions) over two runs' recorded
+    codes (code_probe)."""
     return (sum(int((x != y).sum()) for x, y in zip(a, b)),
             sum(x.numel() for x in a))
 
 
-def _zoo_step(nt, args, d, batch, f64=False, replay=False, jitter=0.0):
-    """One loss_and_grads of nt's seeded model on `d`: loss, grads (on the
-    CPU, f32), seconds, launches, the model and master (for the levels
-    check). f64 runs every module and the batch in float64; `replay` runs
-    the step under op_replay (its summary under 'replay'); `jitter`
-    first scales every parameter by 1 + jitter * N(0, 1) (a fixed draw):
-    the same weights to far under a bf16 ulp, some of them rounded to
-    bf16 the other way. An NLSN hashes with fixed rotations, its hash
-    codes recorded under 'hash_codes' (nlsn_probe)."""
+def _zoo_step(args, d, batch, f64=False, replay=False, jitter=0.0):
+    """One loss_and_grads of the seeded model of `args` on `d`: loss,
+    grads (on the CPU, f32), seconds, launches, the model and master
+    (for the levels check). f64 runs every module and the batch in
+    float64; `replay` runs the step under op_replay (its summary under
+    'replay'); `jitter` first scales every parameter by 1 + jitter *
+    N(0, 1) (a fixed draw): the same weights to far under a bf16 ulp,
+    some of them rounded to bf16 the other way. An NLSN hashes with
+    fixed rotations; its hash codes, or a DSR-Splines' knots, are
+    recorded under 'hash_codes' (code_probe)."""
     import torch
     from srcaco2_tpu_torch.losses.master import build_loss
     from srcaco2_tpu_torch.models.registry import define_g
     from srcaco2_tpu_torch.train.steps import loss_and_grads
     model = define_g(args, d, seed=0).train()
-    codes = nlsn_probe(model, PATCH * PATCH)
+    codes = code_probe(model, PATCH * PATCH)
     if jitter:
         g = torch.Generator().manual_seed(5)
         with torch.no_grad():
@@ -1863,8 +1911,9 @@ def _zoo_step(nt, args, d, batch, f64=False, replay=False, jitter=0.0):
     reset_launches()
     t0 = time.perf_counter()
     with mode:
-        loss, _, _, grads = loss_and_grads(model, master, nt, params, batch,
-                                           0, 1.0)
+        loss, _, _, grads = loss_and_grads(
+            model, master, args['netG']['net_type'], params, batch, 0, 1.0,
+            args['netG'])
         if d.type == 'cuda':
             torch.cuda.synchronize()
     rec = dict(loss=float(loss),
@@ -1925,15 +1974,16 @@ def _zoo_summary(rec):
     return out
 
 
-def zoo_check(dev, nets=ZOO):
-    """Each zoo net at full width (at the depths of ZOO_CHECK_NETG), x8,
-    from the same seeded weights on
-    the card and on the CPU: one training step's loss and grads
-    (loss_and_grads, batch 4 of 16x16 LR patches, SRCNN on their 128x128
-    pre-upscale; l2 + 5 neg-SSIM(19)) in f32 with TF32 off and in bf16,
-    and an f32 eval forward at 64x64 LR (batch 1); no kernel launch on
-    these paths; SRFBN's 4 steps and MSLapSRN's 2 levels present in the
-    loss (`_levels_check`).
+def zoo_check(dev, nets=ZOO_CHECKED):
+    """Each zoo net, and CSR-CNN's variants (ZOO_VARIANTS: its grouped
+    snet_type3, its segmentation task with the ce loss), at full width
+    (at the depths of ZOO_CHECK_NETG), x8, from the same seeded weights
+    on the card and on the CPU: one training step's loss and grads
+    (loss_and_grads, batch 4 of 16x16 LR patches, SRCNN and CSR-CNN on
+    their 128x128 pre-upscale; l2 + 5 neg-SSIM(19)) in f32 with TF32 off
+    and in bf16, and an f32 eval forward at 64x64 LR (batch 1); no
+    kernel launch on these paths; SRFBN's 4 steps and MSLapSRN's and
+    ProSR's 2 levels present in the loss (`_levels_check`).
 
     Op by op: the card's f32 and bf16 steps on the batch's first patch
     run under op_replay, which holds every op, forward and backward, to
@@ -1980,16 +2030,26 @@ def zoo_check(dev, nets=ZOO):
 
     NLSN's hash (argmax over rotated embeddings, then a stable sort) is
     discontinuous: both devices hash with the same injected rotations
-    (nlsn_probe) and their codes are counted apart. Where any code
+    (code_probe) and their codes are counted apart. Where any code
     differs, a rounding difference next to a tie moved whole rows
     between chunks, and the step (f32 or bf16) is held by op_replay
     alone, which holds argmax and the sort equal on the card's own
     inputs; the eval forward then runs once more on the card under
-    op_replay, which must pass. The end-to-end values are recorded."""
+    op_replay, which must pass. The end-to-end values are recorded.
+    DSR-Splines' knot masks (floor(255 * the f32 bicubic upscale)) are
+    discontinuous alike: a pixel whose upscale lies within an ulp of a
+    knot boundary can fall into either knot; their knots are counted
+    apart and held the same way.
+
+    The segmentation variant's eval forward: its expectation
+    (`expected_pred`) is held as `out` is above, and its argmax levels
+    (`out`) equal wherever the CPU's two largest logits lie further
+    apart than twice the largest difference between the devices'
+    logits (held within 1e-4 of their size)."""
     import statistics as st
     import torch
     from srcaco2_tpu_torch.models.registry import define_g
-    from srcaco2_tpu_torch.train.steps import model_outputs
+    from srcaco2_tpu_torch.train.steps import model_outputs, pre_upsampled
     allow = (torch.backends.cuda.matmul.allow_tf32,
              torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2012,16 +2072,16 @@ def zoo_check(dev, nets=ZOO):
         for name, amp in (('f32', False), ('bf16', True)):
             args = zoo_check_args(nt, amp)
             for side, d, bt in sides:
-                rec = _zoo_step(nt, args, d, bt)
+                rec = _zoo_step(args, d, bt)
                 if side == 'card' and name == 'f32' and nt in ZOO_LEVELS:
                     rec['levels'] = _levels_check(
                         nt, rec['model'], rec['master'], bt, rec['loss'])
                 del rec['model'], rec['master']
                 runs[name, side] = rec
-            rec = _zoo_step(nt, args, dev, batch_1, replay=True)
+            rec = _zoo_step(args, dev, batch_1, replay=True)
             runs[name, 'card']['replay'] = rec['replay']
             del rec
-        rec = _zoo_step(nt, zoo_check_args(nt, True), cpu, batch_cpu,
+        rec = _zoo_step(zoo_check_args(nt, True), cpu, batch_cpu,
                         jitter=ZOO_JITTER)
         del rec['model'], rec['master']
         runs['bf16', 'control'] = rec
@@ -2035,7 +2095,7 @@ def zoo_check(dev, nets=ZOO):
         floored, extra = {}, {}
         if any(e > tol['grad_rel_l2'] for e in grel.values()):
             for side, d, bt in sides:
-                rec = _zoo_step(nt, zoo_check_args(nt, False), d, bt,
+                rec = _zoo_step(zoo_check_args(nt, False), d, bt,
                                 f64=True)
                 del rec['model'], rec['master']
                 runs['f64', side] = rec
@@ -2140,25 +2200,32 @@ def zoo_check(dev, nets=ZOO):
                        and v.get('levels', {}).get('ok', True)
                        and all(n == 0 for n in c['launches'].values()))
         del runs
-        # an f32 evaluation forward at 64x64 LR (SRCNN: its 512x512
-        # pre-upscale)
+        # an f32 evaluation forward at 64x64 LR (SRCNN, CSR-CNN: the
+        # 512x512 pre-upscale)
         args = zoo_check_args(nt, False)
         x = x_eval
-        if nt == 'SRCNN':
+        if pre_upsampled(args['netG']['net_type'], args['netG']):
             from srcaco2_tpu_torch.ops.resize import resize2d
             x = torch.clip(resize2d(x, (LR * SCALE, LR * SCALE)), 0, 1)
-        ys, ev_codes = {}, {}
+        ys, ev_codes, seg = {}, {}, {}
 
         def forward(side, d, f64=False, replay=None):
             model = define_g(args, d, seed=0)
-            codes = nlsn_probe(model, LR * LR)
+            codes = code_probe(model, LR * LR)
             xd = x.to(d)
             if f64:
                 _as_float64(model)
                 xd = xd.double()
             t0 = time.perf_counter()
             with torch.inference_mode(), (replay or contextlib.nullcontext()):
-                y = model_outputs(model(xd))['out'].double().cpu()
+                o = model_outputs(model(xd))
+                # the segmentation task: its expectation, the argmax apart
+                y = o.get('expected_pred', o['out']).double().cpu()
+                if 'raw_segmentation' in o and not f64 and replay is None:
+                    # the argmax levels (out * color_max, which the two
+                    # devices divide by color_max an f32 ulp apart)
+                    seg[side] = (o['raw_segmentation'].float().cpu(),
+                                 torch.round(o['out'].double().cpu() * 255))
             ys[side + ('_f64' if f64 else '') + '_s'] = \
                 time.perf_counter() - t0
             ev_codes[side + ('_f64' if f64 else '')] = codes
@@ -2195,6 +2262,19 @@ def zoo_check(dev, nets=ZOO):
             close = (ev['f64_card_vs_cpu'] <= 1e-9
                      and ev['card_f32_vs_f64']
                      <= 4 * ev['cpu_f32_vs_f64'] + 1e-7)
+        if seg:
+            (lc, oc), (lr_, or_) = seg['card'], seg['cpu']
+            lerr = float((lc - lr_).abs().max())
+            top2 = lr_.topk(2, dim=1).values
+            clear = (top2[:, 0] - top2[:, 1]) > 2 * lerr
+            ev.update(logits_max_abs_diff=lerr,
+                      logits_max_abs=float(lr_.abs().max()),
+                      argmax_clear_share=float(clear.float().mean()),
+                      argmax_differ=int((oc != or_).sum()),
+                      argmax_differ_clear=int(((oc != or_)[:, 0]
+                                               & clear).sum()))
+            close = (close and ev['argmax_differ_clear'] == 0
+                     and lerr <= 1e-4 * ev['logits_max_abs'])
         ev['ok'] = (close
                     and ev['shape'] == [1, 1, LR * SCALE, LR * SCALE]
                     and bool(torch.isfinite(ys['card']).all())
@@ -2255,7 +2335,8 @@ def _zoo_train_one(nt, args, dev, data, b, steps, profile=False):
         bt = inputs(b)
         rec['profile'] = profile_device(
             lambda: step(state, hr, lr, *bt), ms,
-            groups={'fft': ('fft',)} if nt == 'DFCAN' else None)
+            groups={'fft': ('fft',)} if nt == 'DFCAN' else None,
+            host_ops=False)
     rec['ok'] = (bool(torch.isfinite(holder['total'])) and bool(ok)
                  and all(v == 0 for v in launches.values()))
     rec['seconds'] = time.perf_counter() - t_net
@@ -2264,34 +2345,45 @@ def _zoo_train_one(nt, args, dev, data, b, steps, profile=False):
     return rec
 
 
-def srfbn_remat(dev, data, plain):
-    """SRFBN with srfbn_remat_steps=True at the README's batch: ms/step
-    and peak memory beside the default's (`plain`, zoo_train's record);
-    and one step's loss and grads (loss_and_grads, the same seeded
-    weights and batch, cuDNN's deterministic algorithms) with the option
-    on and off, which must be bit-equal, with the plain step run twice
-    as the control of the determinism."""
+# the remat options zoo_train flips: net -> (its option, the model's
+# attribute the option sets)
+ZOO_REMAT = {'SRFBN': ('srfbn_remat_steps', 'remat_steps'),
+             'DBPN': ('dbpn_remat_blocks', 'remat_blocks')}
+
+
+def remat_check(nt, dev, data, default):
+    """nt with its remat option (ZOO_REMAT) flipped from its default
+    (SRFBN's srfbn_remat_steps off -> on, DBPN's dbpn_remat_blocks on ->
+    off) at the README's batch: ms/step and peak memory beside the
+    default's (`default`, zoo_train's record), the run with the
+    checkpoint on holding less memory; and one step's loss and grads
+    (loss_and_grads, the same seeded weights and batch, cuDNN's
+    deterministic algorithms) with the option on and off, which must be
+    bit-equal, with the default step run twice as the control of the
+    determinism."""
     import torch
+    from srcaco2_tpu_torch.config.net_defaults import NET_OPTIONS
     from srcaco2_tpu_torch.losses.master import build_loss
     from srcaco2_tpu_torch.models.registry import define_g
     from srcaco2_tpu_torch.train.steps import loss_and_grads
-    args = zoo_args('SRFBN', True)
-    args['netG']['srfbn_remat_steps'] = True
-    rec = _zoo_train_one('SRFBN', args, dev, data, ZOO_BATCH,
-                         3)
+    flag, attr = ZOO_REMAT[nt]
+    on_default = bool(NET_OPTIONS[nt][flag])
+    args = zoo_args(nt, True)
+    args['netG'][flag] = not on_default
+    rec = _zoo_train_one(nt, args, dev, data, ZOO_BATCH, 3)
     det = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     batch = zoo_batch(dev, ZOO_BATCH, 17)
     grads = {}
-    for name, on in (('plain', False), ('remat', True), ('plain_again',
-                                                         False)):
-        a = zoo_args('SRFBN', True)
-        a['netG']['srfbn_remat_steps'] = on
+    for name, on in (('default', on_default), ('flipped', not on_default),
+                     ('default_again', on_default)):
+        a = zoo_args(nt, True)
+        a['netG'][flag] = on
         model = define_g(a, dev, seed=0).train()
-        built_as_asked = model.remat_steps is on
+        built_as_asked = getattr(model, attr) is on
         params = dict(model.named_parameters())
-        loss, _, _, g = loss_and_grads(model, build_loss(a), 'SRFBN',
-                                       params, batch, 0, 1.0)
+        loss, _, _, g = loss_and_grads(model, build_loss(a), nt, params,
+                                       batch, 0, 1.0)
         grads[name] = (loss.float().cpu(),
                        {k: v.float().cpu() for k, v in g.items()},
                        built_as_asked)
@@ -2302,20 +2394,23 @@ def srfbn_remat(dev, data, plain):
     def same(x, y):
         return bool(torch.equal(x[0], y[0]) and all(
             torch.equal(x[1][k], y[1][k]) for k in x[1]))
-    rec['remat_steps_as_asked'] = all(v[2] for v in grads.values())
+    on_rec, off_rec = (default, rec) if on_default else (rec, default)
+    rec['option'], rec['option_value'] = flag, not on_default
+    rec['remat_as_asked'] = all(v[2] for v in grads.values())
     rec.update(
-        plain_ms_per_step=plain['ms_per_step'],
-        plain_max_memory_allocated=plain['max_memory_allocated'],
+        default_ms_per_step=default['ms_per_step'],
+        default_max_memory_allocated=default['max_memory_allocated'],
         memory_ratio=rec['max_memory_allocated']
-        / plain['max_memory_allocated'],
-        time_ratio=rec['ms_per_step'] / plain['ms_per_step'],
-        bit_equal_to_plain=same(grads['remat'], grads['plain']),
-        plain_bit_equal_twice=same(grads['plain_again'], grads['plain']),
-        loss=float(grads['remat'][0]))
-    rec['ok'] = (rec['ok'] and rec['bit_equal_to_plain']
-                 and rec['remat_steps_as_asked']
-                 and rec['max_memory_allocated']
-                 < plain['max_memory_allocated'])
+        / default['max_memory_allocated'],
+        time_ratio=rec['ms_per_step'] / default['ms_per_step'],
+        bit_equal_to_default=same(grads['flipped'], grads['default']),
+        default_bit_equal_twice=same(grads['default_again'],
+                                     grads['default']),
+        loss=float(grads['flipped'][0]))
+    rec['ok'] = (rec['ok'] and rec['bit_equal_to_default']
+                 and rec['remat_as_asked']
+                 and on_rec['max_memory_allocated']
+                 < off_rec['max_memory_allocated'])
     return rec
 
 
@@ -2323,15 +2418,17 @@ def zoo_train(dev, smi, nets=ZOO):
     """Each zoo net's train step on the card (bf16 over f32 params, the
     README's amp; random seeded weights; l2 + 5 neg-SSIM(19); Adam) at
     x8 on 16x16 LR patches: DFCAN as bench.py's step at batch 128 with 10
-    timed steps, the others at the README's batch 64 with 5 (the second
-    part of the zoo, NLSN, GRL, DRRN and MemNet, with 3: ZOO_STEPS;
+    timed steps, the others at the README's batch 64 with 5 (the later
+    parts of the zoo, from NLSN on, with 3: ZOO_STEPS;
     MemNet with its per-pass checkpoint on, as its default is); one
     warm-up step each, host clock synchronised around the timed steps;
     ms/step, patches/s, peak memory, no kernel launch; the device time
     of one step by kernel and the device's busy share (profile_device)
     for ZOO_PROFILED, DFCAN's with the FFT's share (cuFFT's kernels).
     NLSN's steps draw their rotations from per-step generators, as the
-    trainer's. Then SRFBN with srfbn_remat_steps (srfbn_remat)."""
+    trainer's. Then SRFBN with srfbn_remat_steps and DBPN without
+    dbpn_remat_blocks (remat_check), and EDSR-LIIF's gather
+    (liif_gather_check)."""
     import torch
     from srcaco2_tpu_torch.data import pipeline as P
     from srcaco2_tpu_torch.utils import reproducibility as R
@@ -2362,19 +2459,84 @@ def zoo_train(dev, smi, nets=ZOO):
                           'ms_per_step': rec['ms_per_step'],
                           'max_memory_allocated':
                           rec['max_memory_allocated']}), flush=True)
-    if 'SRFBN' in out:
-        rec = srfbn_remat(dev, data, out['SRFBN'])
+    for nt in ZOO_REMAT:
+        if nt not in out:
+            continue
+        rec = remat_check(nt, dev, data, out[nt])
         rec['nvidia_smi'] = smi
-        out['SRFBN_remat_steps'] = rec
+        name = f'{nt}_{rec["option"]}_{rec["option_value"]}'
+        out[name] = rec
         ok_all = ok_all and rec['ok']
-        print(json.dumps({'zoo_train_net': 'SRFBN_remat_steps',
-                          **{k: rec[k] for k in (
-                              'ok', 'ms_per_step', 'max_memory_allocated',
-                              'plain_ms_per_step',
-                              'plain_max_memory_allocated',
-                              'bit_equal_to_plain',
-                              'plain_bit_equal_twice')}}), flush=True)
+        print(json.dumps({'zoo_train_net': name, **{k: rec[k] for k in (
+            'ok', 'ms_per_step', 'max_memory_allocated',
+            'default_ms_per_step', 'default_max_memory_allocated',
+            'bit_equal_to_default', 'default_bit_equal_twice')}}),
+            flush=True)
+    if 'EDSR_LIIF' in out:
+        rec = liif_gather_check(dev)
+        out['EDSR_LIIF_gather'] = rec
+        ok_all = ok_all and rec['ok']
+        print(json.dumps({'zoo_train_net': 'EDSR_LIIF_gather', **rec}),
+              flush=True)
     return out, ok_all
+
+
+def liif_gather_check(dev):
+    """EDSR-LIIF's ensemble gather (models/edsr_liif.ensemble_gather) at
+    its shape in zoo_train's step (bf16, batch 64 of 16x16 LR, x8, 256
+    channels), each of its 4 branches: the backward (f32 segment sums
+    rounded to bf16 after each axis) run twice on the same cotangent,
+    which must agree bit for bit, and against the CPU's (the elements
+    that differ counted, the largest difference within a bf16 ulp of the
+    largest grad); its ms beside the same sums through index_add_ (the
+    library's scatter-add, atomics on the card) and whether two of those
+    agree."""
+    import torch
+    from srcaco2_tpu_torch.models import edsr_liif as L
+    hl, c, b, bf = PATCH, 256, ZOO_BATCH, torch.bfloat16
+    hh = hl * SCALE
+    g = torch.Generator(device=dev).manual_seed(19)
+    z = torch.randn((b, hl, hl, c), generator=g, device=dev).to(bf)
+    cot = torch.randn((b, hh, hh, c), generator=g, device=dev).to(bf)
+    z_cpu, cot_cpu = z.cpu(), cot.cpu()
+
+    def bwd(zz, cc, br):
+        zz = zz.detach().requires_grad_()
+        L.ensemble_gather(zz, br['iy'], br['ix'], br['seg_y'],
+                          br['seg_x']).backward(cc)
+        return zz.grad
+
+    def index_add(br):
+        t = torch.zeros((b, hh, hl, c), device=dev).index_add_(
+            2, br['ix'], cot.float()).to(bf)
+        return torch.zeros((b, hl, hl, c), device=dev).index_add_(
+            1, br['iy'], t.float()).to(bf)
+
+    card, on_cpu = (L._plan_on(hl, hl, SCALE, True, True, str(d))[0]
+                    for d in (dev, torch.device('cpu')))
+    rec = dict(shape=[b, hl, hl, c], scale=SCALE, branches=[])
+    for br, br_cpu in zip(card, on_cpu):
+        first, second = bwd(z, cot, br), bwd(z, cot, br)
+        ref = bwd(z_cpu, cot_cpu, br_cpu)
+        diff = (first.float().cpu() - ref.float()).abs()
+        ia = index_add(br)
+        rec['branches'].append(dict(
+            bit_equal_twice=bool(torch.equal(first, second)),
+            cpu_differ=int((diff > 0).sum()),
+            cpu_max_abs_diff=float(diff.max()),
+            grad_max_abs=float(ref.float().abs().max()),
+            index_add_bit_equal_twice=bool(torch.equal(ia, index_add(br))),
+            index_add_max_abs_diff=float((ia.float() - first.float())
+                                         .abs().max())))
+        del first, second, ref, ia
+    br = card[0]
+    rec['bwd_ms'] = cuda_ms(lambda: bwd(z, cot, br), reps=3, per=5)
+    rec['index_add_ms'] = cuda_ms(lambda: index_add(br), reps=3, per=5)
+    rec['ok'] = all(r['bit_equal_twice'] and r['cpu_max_abs_diff']
+                    <= 2.0 ** -7 * r['grad_max_abs'] for r in rec['branches'])
+    del z, cot
+    torch.cuda.empty_cache()
+    return rec
 
 
 # the README's training command (README.md:91-100) with only the dataset
@@ -2398,10 +2560,11 @@ ENTRY = {
 }
 
 
-def _run_entry(cmd, cwd, log, timeout=600):
+def _run_entry(cmd, cwd, log, timeout=600, env=None):
     """One entry point in a subprocess of this interpreter, the repo on
-    its path; (return code, seconds). Its output goes to `log`."""
-    env = dict(os.environ,
+    its path, `env` added to this process's environment; (return code,
+    seconds). Its output goes to `log`."""
+    env = dict(os.environ, **(env or {}),
                PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
     t0 = time.perf_counter()
     with open(log, 'w') as f:
@@ -2545,50 +2708,71 @@ def entry_phase(name, out_dir=None):
 ZOO_ENTRY_FLAGS = [f for f in ENTRY['entry_x8']['flags']
                    if f not in ('--swinir_upsampler', 'pixelshuffledirect')]
 ZOO_ENTRY = dict(scale=8, n_train=2 * ZOO_BATCH, n_val=4, n_test=4,
-                 epochs=1, steps=2, workers=4)
+                 epochs=1, steps=2, workers=6)
 
 
-# the nets whose `main` holds 15 GB or more at batch 64 (MemNet 36.4,
-# SRFBN 25.6, DRRN 15.2; the others at most 9.0): entry_zoo runs one of
-# them at a time beside the others, so that four concurrent runs leave
-# the card's memory far from full. Near full, cuDNN picks convolution
-# algorithms by the workspace it can get, and a forward is no longer
-# reproducible: GRL's f32 eval forward at 64x64 LR changed 79 output
-# pixels with 1.5 GB free (run on an NVIDIA H100 80GB HBM3 at 700 W),
-# and `eval` then misses the final test
-ZOO_HEAVY = ('SRFBN', 'DRRN', 'MemNet')
+# each zoo net's device memory for `main` and `eval` at ZOO_ENTRY's
+# size, GB: the larger of the two processes' peaks (entry_zoo's record:
+# main_max_memory_allocated, and eval_max_memory_reserved, its upper
+# bound), rounded up; SRCNN's and EDSR-LIIF's lie in the validation
+# forward of 8 full 512^2 images, the others' in the training step (runs
+# on an NVIDIA H100 80GB HBM3 at 700 W)
+ZOO_ENTRY_PEAK_GB = {
+    'EDSR_LIIF': 45.4, 'MemNet': 36.5, 'SRFBN': 25.6, 'SRCNN': 17.4,
+    'DRRN': 15.2, 'DBPN': 13.6, 'ProSR': 9.3, 'GRL': 8.8, 'NLSN': 6.7,
+    'OmniSR': 6.2, 'ENLCN': 6.1, 'DSRSplines': 4.9, 'VDSR': 3.1,
+    'DFCAN': 2.9, 'CSRCNN': 2.7, 'ACT': 2.6, 'MSLapSRN': 2.5}
+# Left to itself each run's caching allocator keeps what it freed, and
+# cuDNN sizes a convolution's workspace by the card's free memory, so
+# that four concurrent runs filled the card: a run out of memory, and
+# near full cuDNN's choice of algorithm, so a forward's bits, moved with
+# the workspace it could get (GRL's `eval` missed its final test by
+# 1.3e-5 dB). Each run is now held to a share of the card (its peak with
+# a margin, zoo_entry_cap_gb) and runs start only while the shares of the
+# runs on the card fit in its free memory, so that no run is starved by
+# another's cache (runs on an NVIDIA H100 80GB HBM3 at 700 W).
+ZOO_ENTRY_ALLOC = 'expandable_segments:True,per_process_memory_fraction:{:.4f}'
+# the CUDA context of a process, outside its allocator's share (one for
+# each worker), and the free memory left beside the shares, GB
+ZOO_ENTRY_CONTEXT_GB, ZOO_ENTRY_SPARE_GB = 0.6, 2.0
 
 
-def _zoo_entry_one(nt, tmp, data, names, out_dir, heavy_slot):
-    """main then eval for one net in its own working directory (a ZOO_HEAVY
-    net holding `heavy_slot` meanwhile); the gates of entry_phase, with
-    no kernel launch in any phase."""
-    with heavy_slot if nt in ZOO_HEAVY else contextlib.nullcontext():
-        return _zoo_entry_run(nt, tmp, data, names, out_dir)
+def zoo_entry_cap_gb(nt):
+    """nt's share of the card for its `main` and `eval` runs, GB: its
+    peak with a margin for cuDNN's workspaces."""
+    return 1.1 * ZOO_ENTRY_PEAK_GB[nt] + 2.0
 
 
-def _zoo_entry_run(nt, tmp, data, names, out_dir):
+def _zoo_entry_run(nt, tmp, data, names, out_dir, total):
+    """main then eval for one net in its own working directory, each
+    process held to zoo_entry_cap_gb(nt) of the card's `total` bytes; the
+    gates of entry_phase, with no kernel launch in any phase."""
     import pickle
     import shutil
     from srcaco2_tpu_torch.train import checkpoint as CKPT
     cfg = ZOO_ENTRY
     cwd = os.path.join(tmp, nt)
     os.makedirs(cwd)
+    cap = zoo_entry_cap_gb(nt)
+    env = {'PYTORCH_CUDA_ALLOC_CONF': ZOO_ENTRY_ALLOC.format(
+        cap * 1e9 / total)}
     rc_train, train_s = _run_entry(
         ['srcaco2_tpu_torch.main', '--net_type', nt, '--scale',
          str(cfg['scale']), '--n_channels', '1', '--train_dsets', names[0],
          '--valid_dsets', names[1], '--test_dsets', names[2],
          '--data_root', data, '--splits_root', data, *ZOO_ENTRY_FLAGS,
          '--max_epochs', str(cfg['epochs']), '--checkpoint_eval', '1.0',
-         '--checkpoint_save', '1.0'], cwd, os.path.join(cwd, 'main.log'))
+         '--checkpoint_save', '1.0'], cwd, os.path.join(cwd, 'main.log'),
+        env=env)
     done = [os.path.join(d, 'passed.txt') for d, _, f in
             os.walk(os.path.join(cwd, 'exps')) if 'passed.txt' in f]
     exp = os.path.dirname(done[0]) if done else None
     rc_eval, eval_s = (_run_entry(
         ['srcaco2_tpu_torch.eval', '--exp_path', exp], cwd,
-        os.path.join(cwd, 'eval.log')) if exp else (None, 0.0))
+        os.path.join(cwd, 'eval.log'), env=env) if exp else (None, 0.0))
     rec = dict(main_rc=rc_train, main_seconds=train_s, eval_rc=rc_eval,
-               eval_seconds=eval_s, passed_txt=bool(done), exp=exp)
+               eval_seconds=eval_s, passed_txt=bool(done), exp=exp,
+               cap_gb=cap)
     if out_dir:
         dst = os.path.join(out_dir, 'entry_zoo', nt)
         os.makedirs(dst, exist_ok=True)
@@ -2633,7 +2817,10 @@ def _zoo_entry_run(nt, tmp, data, names, out_dir):
             train_windows=windows,
             train_max_memory_allocated=max(
                 (w.get('max_memory_allocated') or 0 for w in windows),
-                default=0))
+                default=0),
+            **{f'{proc}_{k}': st.get(k) for proc, st in (('main', stats),
+                                                         ('eval', ev_stats))
+               for k in ('max_memory_allocated', 'max_memory_reserved')})
         ok = (rec['last_checkpoint'] == cfg['steps'] and rec['best_model']
               and rec['train_steps'] == cfg['steps']
               and len(val) >= cfg['epochs']
@@ -2646,7 +2833,7 @@ def _zoo_entry_run(nt, tmp, data, names, out_dir):
 # the LR side each served zoo net takes (its CPU comparison runs the
 # same requests: MemNet's 216 block applications on 64x64 LR take ~40 s
 # per image on the host)
-ZOO_SERVE_LR = {'SRCNN': LR, 'MemNet': 16}
+ZOO_SERVE_LR = {'SRCNN': LR, 'MemNet': 16, 'CSRCNN': LR}
 
 
 def _serve_zoo(nt, exp, dev):
@@ -2657,11 +2844,14 @@ def _serve_zoo(nt, exp, dev):
     the experiment trained with amp. SRCNN (3 layers): a different f32
     sum order flips a bf16 rounding, one uint8 level at outputs in
     [0.5, 1); 99% within 1 level, none more than 2 apart. MemNet (216
-    block applications, each normalised by running statistics): the
-    flips travel through the depth, so the card's pixels are held to an
-    f32 server of the same weights as the `serve` phase holds the kernel
-    path, no further from it than the CPU's bf16 pixels are (mean within
-    1.25 x, max within 2 x). SRCNN takes the bicubic pre-upscale; MemNet
+    block applications, each normalised by running statistics) and
+    CSR-CNN (its unet, 49 convolutions): the flips travel through the depth, so
+    the card's pixels are held to an f32 server of the same weights as
+    the `serve` phase holds the kernel path, no further from it than the
+    CPU's bf16 pixels are (mean within 1.25 x, max within 2 x); CSR-CNN's
+    f32 server on the card is also held to the same f32 server on the
+    CPU by SRCNN's rule (99% within 1 level, none more than 2 apart). SRCNN and CSR-CNN take the bicubic
+    pre-upscale; MemNet
     the LR batch, normalised with the running statistics the experiment
     saved (the served model in evaluation mode, its buffers the best
     model's)."""
@@ -2706,9 +2896,9 @@ def _serve_zoo(nt, exp, dev):
         close = (s['tail_vs_cpu_within1_share'] >= 0.99
                  and s['tail_vs_cpu_max_diff'] <= 2)
     else:
-        ref = SRServer(args={**srv.args, 'amp': False}, state_dict=best,
-                       batch_size=3, lr_hw=(lr_side, lr_side),
-                       device=dev)(req_a[8:]).astype(np.int16)
+        f32 = dict(args={**srv.args, 'amp': False}, state_dict=best,
+                   batch_size=3, lr_hw=(lr_side, lr_side))
+        ref = SRServer(**f32, device=dev)(req_a[8:]).astype(np.int16)
         e_card = np.abs(out_a[8:].astype(np.int16) - ref)
         e_cpu = np.abs(cpu.astype(np.int16) - ref)
         s.update(card_vs_f32_mean=float(e_card.mean()),
@@ -2717,28 +2907,93 @@ def _serve_zoo(nt, exp, dev):
                  cpu_vs_f32_max=int(e_cpu.max()))
         close = (e_card.mean() <= 1.25 * e_cpu.mean()
                  and e_card.max() <= 2 * e_cpu.max())
+        if nt in ZOO_SERVED_F32_PIXELS:
+            # the f32 server's pixels on the card against the CPU's, by
+            # SRCNN's rule
+            d32 = np.abs(SRServer(**f32, device='cpu')(req_a[8:])
+                         .astype(np.int16) - ref)
+            s.update(f32_vs_cpu_f32_within1_share=float((d32 <= 1).mean()),
+                     f32_vs_cpu_f32_equal_share=float((d32 == 0).mean()),
+                     f32_vs_cpu_f32_max_diff=int(d32.max()))
+            close = (close and s['f32_vs_cpu_f32_within1_share'] >= 0.99
+                     and s['f32_vs_cpu_f32_max_diff'] <= 2)
     s['ok'] = bool(close and s['shapes_ok'] and s['deterministic']
                    and s['eval_mode'] and s['buffers_as_saved']
-                   and s['pre_upsampled'] == (nt == 'SRCNN')
+                   and s['pre_upsampled'] == (nt in ZOO_SERVED_PRE)
                    and (nt != 'MemNet' or s['n_buffers'] > 0))
     del srv
     return s
 
 
 # the nets SRServer serves in entry_zoo
-ZOO_SERVED = ('SRCNN', 'MemNet')
+ZOO_SERVED = ('SRCNN', 'MemNet', 'CSRCNN')
+# the served nets that take the bicubic pre-upscale (SRServer's
+# pre_upsampled)
+ZOO_SERVED_PRE = ('SRCNN', 'CSRCNN')
+# the served nets whose f32 server's pixels on the card are also held to
+# the CPU's by SRCNN's rule (their bf16 pixels by MemNet's)
+ZOO_SERVED_F32_PIXELS = ('CSRCNN',)
+
+
+def _within_budget(nets, need, budget, workers, run):
+    """{nt: run(nt)} for every net, at most `workers` at a time and the
+    needs of the running nets never above `budget` together (a net that
+    needs more than the budget runs alone); each free worker takes the
+    first waiting net, largest need first, that fits. Also the most
+    runs that were on the card at once."""
+    import threading
+    cond = threading.Condition()
+    waiting = sorted(nets, key=lambda nt: -need[nt])
+    held, out, errs, most = {}, {}, [], [0]
+
+    def take():
+        for nt in waiting:
+            if not held or sum(held.values()) + need[nt] <= budget:
+                return nt
+        return None
+
+    def worker():
+        while True:
+            with cond:
+                while waiting and (nt := take()) is None:
+                    cond.wait()
+                if not waiting:
+                    return
+                waiting.remove(nt)
+                held[nt] = need[nt]
+                most[0] = max(most[0], len(held))
+            try:
+                out[nt] = run(nt)
+            except BaseException as e:      # re-raised once all have run
+                errs.append(e)
+            finally:
+                with cond:
+                    del held[nt]
+                    cond.notify_all()
+
+    threads = [threading.Thread(target=worker) for _ in range(workers)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errs:
+        raise errs[0]
+    return out, most[0]
 
 
 def entry_zoo(dev, out_dir=None, nets=ZOO):
     """`python -m srcaco2_tpu_torch.main --net_type <NET>` with the
     README's flags, then `python -m srcaco2_tpu_torch.eval`, for each zoo
     net on one synthetic x8 dataset (128 / 4 / 4 images of 512^2; 1 epoch
-    of 2 steps at batch 64, a validation, the test), four nets at a time
-    on the card; the gates of entry_phase with no kernel launch. Then
-    SRCNN's and MemNet's best models served through SRServer on the card
-    (_serve_zoo)."""
+    of 2 steps at batch 64, a validation, the test), up to six nets at
+    a time on the card, each process held to its share of the card and
+    the shares of the running nets within its free memory
+    (zoo_entry_cap_gb); the gates of entry_phase with no kernel launch.
+    Then SRCNN's, MemNet's and CSR-CNN's best models served through
+    SRServer on the card (_serve_zoo). Also the card's least free memory
+    while the runs ran."""
     import tempfile
-    from concurrent.futures import ThreadPoolExecutor
+    import threading
     import torch
     from srcaco2_tpu_torch.data.synthetic import make_synthetic_dataset
     cfg = ZOO_ENTRY
@@ -2754,12 +3009,30 @@ def entry_zoo(dev, out_dir=None, nets=ZOO):
         out['dataset'] = dict(names=names, seconds=time.perf_counter() - t0,
                               n=[cfg['n_train'], cfg['n_val'],
                                  cfg['n_test']])
-        heavy_slot = threading.Semaphore(1)
-        with ThreadPoolExecutor(cfg['workers']) as pool:
-            futs = {nt: pool.submit(_zoo_entry_one, nt, tmp, data, names,
-                                    out_dir, heavy_slot) for nt in nets}
-            nets_ = {nt: f.result() for nt, f in futs.items()}
-        out['nets'] = nets_
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info(dev)
+        budget = (free / 1e9 - ZOO_ENTRY_CONTEXT_GB * cfg['workers']
+                  - ZOO_ENTRY_SPARE_GB)
+        frees, stop = [], threading.Event()
+
+        def sample():
+            while not stop.wait(0.25):
+                frees.append(torch.cuda.mem_get_info(dev)[0])
+
+        sampler = threading.Thread(target=sample)
+        sampler.start()
+        try:
+            nets_, most = _within_budget(
+                nets, {nt: zoo_entry_cap_gb(nt) for nt in nets}, budget,
+                cfg['workers'], lambda nt: _zoo_entry_run(
+                    nt, tmp, data, names, out_dir, total))
+        finally:
+            stop.set()
+            sampler.join()
+        nets_ = {nt: nets_[nt] for nt in nets}
+        out.update(nets=nets_, free_gb_at_start=free / 1e9,
+                   budget_gb=budget, most_runs_at_once=most,
+                   least_free_gb=min(frees, default=free) / 1e9)
         ok = all(r['ok'] for r in nets_.values())
         for nt in ZOO_SERVED:
             if nt not in nets_:
@@ -3041,9 +3314,16 @@ def main() -> int:
         print('chip_smoke: windowed_profile failed', file=sys.stderr)
         return 1
     torch.cuda.empty_cache()
+    # the entry runs are processes of their own, each far from the
+    # card's memory (5.6 GB reserved at x8, 17.7 at x2, on an NVIDIA H100
+    # 80GB HBM3 at 700 W), so they run at the same time
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(len(ENTRY)) as pool:
+        runs = {name: pool.submit(entry_phase, name, out_dir)
+                for name in ENTRY}
+        runs = {name: f.result() for name, f in runs.items()}
     entries = {}
-    for name in ENTRY:
-        rec, ok = entry_phase(name, out_dir)
+    for name, (rec, ok) in runs.items():
         entries[name] = emit(name, **rec, nvidia_smi=smi)
         if not ok:
             print(f'chip_smoke: {name} failed', file=sys.stderr)
@@ -3055,15 +3335,15 @@ def main() -> int:
                      ('zoo_train', lambda: zoo_train(dev, smi)),
                      ('entry_zoo', lambda: entry_zoo(dev, out_dir))):
         t0 = time.perf_counter()
-        rec, ok = fn()
-        rec['phase_seconds'] = time.perf_counter() - t0
-        zoo[name] = rec
+        zrec, ok = fn()
+        zrec['phase_seconds'] = time.perf_counter() - t0
+        zoo[name] = zrec
         if out_dir:
             with open(os.path.join(out_dir, f'{name}.json'), 'w') as f:
-                json.dump(rec, f, indent=1)
+                json.dump(zrec, f, indent=1)
         # the line holds each check's verdict and worst value; the
         # floored grads' details are in the record (--out-dir)
-        emit(name, **(_zoo_summary(rec) if name == 'zoo_check' else rec),
+        emit(name, **(_zoo_summary(zrec) if name == 'zoo_check' else zrec),
              nvidia_smi=smi)
         torch.cuda.empty_cache()
         if not ok:

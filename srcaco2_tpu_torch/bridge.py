@@ -25,7 +25,11 @@ rule covers them: the flax path joined by dots, where
     checkpoint renames nothing;
   * GRL's scanned block pairs (`s{i}_blocks/GRLBlock_{m}/...`, stacked
     (d/2, ...)) unstack onto the blocks `s{i}_b{2p + m}`; DRRN's shared
-    `rec1` / `rec2` are one conv each on both sides.
+    `rec1` / `rec2` are one conv each on both sides;
+  * DSR-Splines' vmapped bank (`splines/Conv_<n>`, an (S, kh, kw, I, O)
+    kernel and an (S, O) bias) lands on one batched conv whose output
+    channel s * O + o is branch s's o: (S * O, I, kh, kw) and (S * O,)
+    (models/dsr_splines.py).
 SwinIR's leaves:
   * conv kernels (kh, kw, I, O) become (O, I, kh, kw);
   * LayerNorm `scale` becomes `weight` (patch_norm, the final norm and
@@ -170,6 +174,11 @@ def _zoo_targets(path: Tuple[str, ...], value: np.ndarray,
             value = value[::-1, ::-1].transpose(2, 3, 0, 1)
         else:
             value = _conv(value)
+    elif value.ndim == 5:       # a vmapped bank's (S, kh, kw, I, O) kernel
+        s_, kh, kw, i, o = value.shape
+        value = value.transpose(0, 4, 3, 1, 2).reshape(s_ * o, i, kh, kw)
+    elif value.ndim == 2 and leaf == 'bias':    # and its (S, O) bias
+        value = value.reshape(-1)
     return [(name, value)]
 
 

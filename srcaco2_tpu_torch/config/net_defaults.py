@@ -1,5 +1,5 @@
 """Per-network default hyper-parameters (the branches of
-srcaco2_tpu/config/net_defaults.py:init_net_g for the ported nets),
+srcaco2_tpu/config/net_defaults.py:init_net_g, one for each net),
 keyed as `<net_type_lower>_<param>` inside the `netG` sub-config."""
 from copy import deepcopy
 
@@ -75,6 +75,50 @@ def _drrn(args):
                 num_residual_units=25)
 
 
+def _edsr_liif(args):
+    # the LIIF decoder's flags (local ensemble, feature unfolding, cell
+    # decoding) all on, as the JAX package sets them
+    return dict(upscale=args['scale'], in_chans=args['n_channels'],
+                n_feats=64, img_range=1.0, res_scale=1., n_resblocks=16,
+                local_ensemble=True, feat_unfold=True, cell_decode=True)
+
+
+def _prosr(args):
+    # residual_denseblock, level_compression, max_num_feature and
+    # block_compression are set as the JAX package sets them and read
+    # by neither package's ProSR
+    return dict(upscale=args['scale'], in_chans=args['n_channels'],
+                residual_denseblock=True, num_init_features=160, bn_size=4,
+                growth_rate=40, ps_woReLU=False, level_compression=-1,
+                res_factor=0.2, max_num_feature=312, block_compression=0.4,
+                level_config={
+                    2: [[8, 8, 8, 8, 8, 8, 8, 8, 8]],
+                    4: [[8, 8, 8, 8, 8, 8, 8, 8, 8], [8, 8, 8]],
+                    8: [[8, 8, 8, 8, 8, 8, 8, 8, 8], [8, 8, 8], [8]],
+                })
+
+
+def _dbpn(args):
+    return dict(upscale=args['scale'], in_chans=args['n_channels'],
+                base_filter=64, feat=256, num_stages=3)
+
+
+def _dsr_splines(args):
+    return dict(upscale=args['scale'], in_planes=args['n_channels'],
+                color_min=args['color_min'], color_max=args['color_max'],
+                in_ksz=3, splinenet_type=constants.SPLINE_NET_TYPES[0],
+                n_splines_per_color=16, use_local_residual=False,
+                use_global_residual=False)
+
+
+def _csrcnn(args):
+    return dict(upscale=args['scale'], in_planes=args['n_channels'],
+                in_ksz=3, ngroups=16, use_local_residual=False,
+                norm_groups=16, channel_mults='1_2_4_8_16_32_32_32',
+                dropout=0.0, outksz=3, inner_channel=32, res_blocks=3,
+                net_type=constants.NET_TYPE_UNET, use_global_residual=True)
+
+
 def _upscale_in_chans(args):
     return dict(upscale=args['scale'], in_chans=args['n_channels'])
 
@@ -93,26 +137,32 @@ _DEFAULTS = {
     constants.GRL: _grl,
     constants.DRRN: _drrn,
     constants.MEMNET: _memnet,
+    constants.EDSR_LIIF: _edsr_liif,
+    constants.PROSR: _prosr,
+    constants.DBPN: _dbpn,
+    constants.DSRSPLINES: _dsr_splines,
+    constants.CSRCNN: _csrcnn,
 }
 
-# the nets define_g and init_net_g build
+# the nets define_g and init_net_g build: every net of constants.MODELS
 PORTED_NETS = tuple(_DEFAULTS)
+assert set(PORTED_NETS) == set(constants.MODELS)
 
 # options a net reads that init_net_g leaves unset (define_g's default
 # applies; the JAX package's defaults do not set them either): each can
 # be given on the command line or in a config's netG
-NET_OPTIONS = {constants.SRFBN: {'srfbn_remat_steps': False}}
+NET_OPTIONS = {constants.SRFBN: {'srfbn_remat_steps': False},
+               constants.DBPN: {'dbpn_remat_blocks': True}}
 
 
 def init_net_g(netG: dict, args: dict) -> dict:
-    """Fill the defaults of a ported net and the common init keys; the
-    other nets raise NotImplementedError."""
+    """Fill the defaults of a net and the common init keys; a name that
+    is no net raises NotImplementedError."""
     out = deepcopy(netG)
     net_type = netG['net_type']
     if net_type not in _DEFAULTS:
         raise NotImplementedError(
-            f'{net_type}: not ported yet (ported: {", ".join(PORTED_NETS)};'
-            ' see ROADMAP.md)')
+            f'{net_type}: no such net (nets: {", ".join(PORTED_NETS)})')
     nt = safe_str_var(net_type)
     for k, v in _DEFAULTS[net_type](args).items():
         out[f'{nt}_{k}'] = v

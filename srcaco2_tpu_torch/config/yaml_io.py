@@ -5,12 +5,15 @@ The JAX package writes its configs (`config.yml`, `config_final.yml`,
 `summary_*.yaml`) with `yaml.safe_dump`, and reads them with
 `yaml.safe_load`. The port does the same where PyYAML imports. Where it
 does not, `dump` writes the same dict as JSON under the same name,
-which YAML reads too, and `load` reads it back with `json`. Two differences between the grammars are handled:
+which YAML reads too, and `load` reads it back with `json`. Three differences between the grammars are handled:
   * PyYAML reads `1e-05` (no dot in the mantissa) as a string, and
     `json.dumps(1e-5)` prints exactly that: every float is written with
     a dot (`1.0e-05`);
   * non-finite floats are written as YAML writes them (`.inf`, `-.inf`,
-    `.nan`) and mapped back to floats on reading.
+    `.nan`) and mapped back to floats on reading;
+  * int keys (ProSR's level_config, keyed by scale) are written as JSON
+    strings and read back as ints: a key that is an integer's decimal
+    form is an int.
 """
 import json
 import math
@@ -44,10 +47,12 @@ def to_json(obj, indent: int = 0) -> str:
         if not obj:
             return '{}'
         items = []
-        for k in sorted(obj):
-            if not isinstance(k, str):
-                raise TypeError(f'key {k!r}: only str keys are written')
-            items.append(f'{pad}{json.dumps(k)}: {to_json(obj[k], indent + 1)}')
+        for k in sorted(obj, key=str):
+            if isinstance(k, bool) or not isinstance(k, (str, int)):
+                raise TypeError(f'key {k!r}: only str and int keys are '
+                                'written')
+            items.append(f'{pad}{json.dumps(str(k))}: '
+                         f'{to_json(obj[k], indent + 1)}')
         return '{\n' + ',\n'.join(items) + '\n' + '  ' * indent + '}'
     if isinstance(obj, (list, tuple)):
         return '[' + ', '.join(to_json(v, indent + 1) for v in obj) + ']'
@@ -69,15 +74,22 @@ def dump(obj, path: str) -> None:
             f.write(to_json(obj) + '\n')
 
 
+_INT_KEY = re.compile(r'-?[0-9]+')
+
+
+def _int_keys(pairs):
+    return {int(k) if _INT_KEY.fullmatch(k) else k: v for k, v in pairs}
+
+
 def loads(text: str):
     """yaml.safe_load(text), or json for the files `dump` writes without
-    PyYAML."""
+    PyYAML (its int keys read back as ints)."""
     if yaml is not None:
         return yaml.safe_load(text)
     text = _NONFINITE.sub(
         lambda m: m.group(1) + ('Infinity' if m.group(2) == 'inf'
                                 else 'NaN'), text)
-    return json.loads(text)
+    return json.loads(text, object_pairs_hook=_int_keys)
 
 
 def load(path: str):
@@ -90,4 +102,4 @@ def parse_value(raw: str):
     "[2, 2]"`), as the JAX parser reads it with yaml.safe_load."""
     if yaml is not None:
         return yaml.safe_load(raw)
-    return json.loads(raw)
+    return json.loads(raw, object_pairs_hook=_int_keys)

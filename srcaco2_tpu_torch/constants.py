@@ -6,6 +6,8 @@ SUPER_RES = 'super-resolution'
 RECONSTRUCT = 'reconstruct'
 TASKS = [SUPER_RES, RECONSTRUCT]
 REGRESSION = 'regression'
+SEGMENTATION = 'segmentation'
+NET_TASKS = [REGRESSION, SEGMENTATION]
 
 SWINIR = 'SwinIR'
 SRCNN = 'SRCNN'
@@ -21,11 +23,14 @@ NLSN = 'NLSN'
 GRL = 'GRL'
 DRRN = 'DRRN'
 MEMNET = 'MemNet'
-# every net of the JAX zoo (config/net_defaults.py:PORTED_NETS lists the
-# ported ones and raises for the others)
-MODELS = [SWINIR, 'DSRSplines', 'CSRCNN', DFCAN, SRCNN, VDSR, MEMNET,
-          DRRN, OMNISR, GRL, ENLCN, ACT, NLSN, 'EDSR_LIIF',
-          SRFBN, 'DBPN', MSLAPSR, PROSR]
+DBPN = 'DBPN'
+DSRSPLINES = 'DSRSplines'
+CSRCNN = 'CSRCNN'
+EDSR_LIIF = 'EDSR_LIIF'
+# every net of the JAX zoo, all ported (config/net_defaults.py:PORTED_NETS)
+MODELS = [SWINIR, DSRSPLINES, CSRCNN, DFCAN, SRCNN, VDSR, MEMNET,
+          DRRN, OMNISR, GRL, ENLCN, ACT, NLSN, EDSR_LIIF,
+          SRFBN, DBPN, MSLAPSR, PROSR]
 NETTYPE_METHOD = {m: m for m in MODELS}
 INIT_W_DEFAULT = 'init_w_default'
 INIT_BN_CONSTANT = 'init_bn_constant'
@@ -41,10 +46,28 @@ US_NEAREST_CONV = 'nearest_conv'
 R_CONNECTION_1CONV = '1conv'
 R_CONNECTION_3CONV = '3conv'
 
-# nets whose input the step dispatch names (train/steps.py:net_input)
-CSRCNN = 'CSRCNN'
+# CSR-CNN's variants: the two named ones, else a key of NETS_CNN
 NET_TYPE_UNET = 'unet'
 NET_TYPE_PYRAMID = 'pyramid'
+
+# DSR-Splines' spline networks: hidden widths of one spline branch
+SPLINE_NET_TYPES = [f'snet_type{i}' for i in range(1, 9)]
+SPLINEHIDDEN = {
+    f'snet_type{i}': [32] * (i - 1) + [16] for i in range(1, 9)
+}
+SPLINEHIDDEN['snet_type1'] = [16]
+
+# small-CNN layer configs for the CSR-CNN 'snet_type*' variants
+NETS_CNN = {
+    'snet_type1': [32],
+    'snet_type2': [32, 32],
+    'snet_type3': [256, 256, 256],
+    'snet_type4': [32] * 4,
+    'snet_type5': [32] * 5,
+    'snet_type6': [32] * 6,
+    'snet_type7': [32] * 7,
+    'snet_type8': [32] * 8,
+}
 
 # patch sampling (only uniform sampling is ported)
 SAMPLE_UNIF = 'uniform'

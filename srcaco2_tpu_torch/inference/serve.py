@@ -6,8 +6,9 @@ optional test modes (train/test_modes.py), and a tail batch padded by
 repeating its last image so one shape serves any request size. PyTorch
 runs eagerly, so where the JAX server compiled ahead of time this one
 builds its kernels and runs one warm-up batch (`setup_seconds`). A
-pre-upsampling net (SRCNN) gets the bicubic pre-upscale of the LR batch,
-rounded to the uint8 grid as the data pipeline rounds it.
+pre-upsampling net (SRCNN; CSR-CNN but its pyramid variant: the rule of
+train/steps.py:pre_upsampled) gets the bicubic pre-upscale of the LR
+batch, rounded to the uint8 grid as the data pipeline rounds it.
 """
 import time
 from typing import Optional, Tuple
@@ -15,10 +16,10 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from srcaco2_tpu_torch import constants, resolve_device
+from srcaco2_tpu_torch import resolve_device
 from srcaco2_tpu_torch.ops.resize import resize2d
 from srcaco2_tpu_torch.train import test_modes as TM
-from srcaco2_tpu_torch.train.steps import model_outputs
+from srcaco2_tpu_torch.train.steps import model_outputs, pre_upsampled
 
 
 class SRServer:
@@ -50,8 +51,8 @@ class SRServer:
             lr_hw = (s, s)
         self.lr_hw = tuple(lr_hw)
         self.in_shape = (self.args['n_channels'], *self.lr_hw)
-        self.pre_upsampled = (self.args['netG']['net_type']
-                              in constants.PRE_UPSAMPLED_INPUT_NETS)
+        netG = self.args['netG']
+        self.pre_upsampled = pre_upsampled(netG['net_type'], netG)
         if self.device.type == 'cuda' and self.model.dtype == torch.float32:
             # f32 serving computes in full f32, as the JAX package does:
             # left on, cuDNN would run the f32 convolutions in TF32; and

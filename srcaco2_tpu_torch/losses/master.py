@@ -4,8 +4,8 @@ srcaco2_tpu/losses/master.py).
 build_loss(args) returns a MasterLoss whose __call__ maps (outputs,
 batch, params, epoch, elb_t) to (total, {name: value}). A term outside
 its epoch window contributes 0 (torch.where, as the JAX package does).
-Ported terms: l1, l2 and neg-SSIM; every other flag raises
-NotImplementedError (see ROADMAP.md).
+Ported terms: l1, l2, neg-SSIM and ce (CSR-CNN's segmentation loss);
+every other flag raises NotImplementedError (see ROADMAP.md).
 """
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Tuple
@@ -17,8 +17,7 @@ from srcaco2_tpu_torch.losses import ops as L
 # loss flags of the JAX package that the port does not have yet
 _NOT_PORTED = ('l2sum', 'charbonnier', 'boundpred', 'local_moments',
                'img_grad', 'norm_img_grad', 'laplace', 'norm_laplace',
-               'loc_var', 'norm_loc_var', 'hist', 'kde', 'ce',
-               'w_sparsity')
+               'loc_var', 'norm_loc_var', 'hist', 'kde', 'w_sparsity')
 
 
 @dataclass(frozen=True)
@@ -102,6 +101,27 @@ def _neg_ssim(window_size):
     return f
 
 
+def _log_softmax(x, dim):
+    """jax.nn.log_softmax's ops in x's dtype: x - max, then minus the
+    log of the exps' sum (exps rounded to the dtype, their sum taken in
+    f32 and rounded, as jnp.sum does for a 16-bit input)."""
+    shifted = x - x.amax(dim, keepdim=True).detach()
+    s = torch.exp(shifted).float().sum(dim, keepdim=True).to(x.dtype)
+    return shifted - torch.log(s)
+
+
+def _ce(color_max):
+    """Cross-entropy of the segmentation logits (outputs'
+    raw_segmentation, (B, levels, H, W)) against the target's levels
+    round(y * color_max), averaged over the pixels."""
+    def f(p, y, ctx):
+        logits = ctx['outputs']['raw_segmentation']
+        labels = torch.round(y[:, 0] * color_max).long()
+        logp = _log_softmax(logits, 1)
+        return -torch.gather(logp, 1, labels[:, None]).mean()
+    return f
+
+
 def build_loss(args: dict) -> MasterLoss:
     """Flag-driven term construction (define_loss parity)."""
     a = args
@@ -121,9 +141,12 @@ def build_loss(args: dict) -> MasterLoss:
     if a.get('ssim'):
         terms.append(Term('ssim', a['ssim_lambda'],
                           _neg_ssim(int(a['ssim_window_s']))))
+    if a.get('ce'):
+        terms.append(Term('ce', a['ce_lambda'],
+                          _ce(float(a.get('color_max', 255)))))
     if not terms:
         raise ValueError('no loss term enabled (set at least one of '
-                         'l1/l2/ssim)')
+                         'l1/l2/ssim/ce)')
     return MasterLoss(terms,
                       elb_init_t=float(a.get('elb_init_t', 1.0)),
                       elb_max_t=float(a.get('elb_max_t', 10.0)),

@@ -98,6 +98,40 @@ def stat_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.promote_types(dtype, torch.float32)
 
 
+class _Conv2dF32(torch.autograd.Function):
+    """F.conv2d in f32 on the card, its weight grad computed without
+    cuDNN. With TF32 off, cuDNN's f32 weight grad of a 5x5 conv of 32
+    channels at 128x128 (CSR-CNN's) lay 1.4e-3 from float64 in relative
+    L2 (2.3e-5 of the terms' absolute sum), TF32's error, under its
+    default, deterministic and benchmarked choices alike; PyTorch's own
+    CUDA convolution (im2col and an f32 GEMM) lay 3e-7, the CPU's 8e-7
+    (NVIDIA H100 80GB HBM3, 700 W). The forward and the input grad stay
+    cuDNN's: within 1e-6 of float64 there."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride, padding, groups):
+        ctx.save_for_backward(x, w)
+        ctx.conf = (stride, padding, groups)
+        return F.conv2d(x, w, stride=stride, padding=padding, groups=groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        stride, padding, groups = ctx.conf
+
+        def grad(mask):
+            return torch.ops.aten.convolution_backward(
+                g, x, w, None, [stride] * 2, [padding] * 2, [1, 1], False,
+                [0, 0], groups, mask)
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = grad([True, False, False])[0]
+        if ctx.needs_input_grad[1]:
+            with torch.backends.cudnn.flags(enabled=False):
+                gw = grad([False, True, False])[1]
+        return gx, gw, None, None, None
+
+
 def _convolve(conv, x, w, dtype, **kw):
     """conv (F.conv2d or F.conv_transpose2d) of x and w cast to `dtype`.
     oneDNN's bf16 convolution on the CPU returns wrong values for some
@@ -105,10 +139,16 @@ def _convolve(conv, x, w, dtype, **kw):
     in a convolution's forward and in a transposed one's backward: on the
     CPU a bf16 convolution runs as the f32 convolution of the bf16
     operands (exact products, f32 sums) rounded once, which is what a
-    bf16 convolution computes, and its backward in f32 too."""
+    bf16 convolution computes, and its backward in f32 too. On the card
+    an f32 conv2d that trains takes its weight grad from PyTorch's own
+    CUDA convolution (_Conv2dF32)."""
     x, w = x.to(dtype), w.to(dtype)
     if x.device.type == 'cpu' and dtype == torch.bfloat16:
         return conv(x.float(), w.float(), **kw).to(dtype)
+    if (conv is F.conv2d and x.is_cuda and dtype == torch.float32
+            and torch.is_grad_enabled() and w.requires_grad):
+        return _Conv2dF32.apply(x, w, kw['stride'], kw['padding'],
+                                kw['groups'])
     return conv(x, w, **kw)
 
 
@@ -117,16 +157,21 @@ class Conv(nn.Module):
     blocks' `Conv` / `StridedConv` wrappers): stride, padding (default
     torch-like 'SAME', (k - 1) // 2), groups (feature_group_count) and an
     optional bias. NCHW in and out, in `dtype`. `init` defaults to the
-    `Conv` wrapper's kernel init; a raw nn.Conv takes lecun_normal."""
+    `Conv` wrapper's kernel init; a raw nn.Conv takes lecun_normal.
+    `pad_mode` 'reflect' or 'replicate' pads the input so (jnp.pad's
+    'reflect' and 'edge') and convolves it unpadded, as the zoo writes a
+    reflect-padded conv (ProSR's RConv, DSR-Splines' and CSR-CNN's
+    layers) and LIIF's edge-padded one."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int = 3, *,
                  stride: int = 1, padding: int = None, groups: int = 1,
                  bias: bool = True, init=uniform_fan_in,
-                 dtype=torch.float32, device=None):
+                 pad_mode: str = 'zeros', dtype=torch.float32, device=None):
         super().__init__()
+        assert pad_mode in ('zeros', 'reflect', 'replicate'), pad_mode
         self.pad = (kernel - 1) // 2 if padding is None else padding
         self.stride, self.groups, self.init = stride, groups, init
-        self.dtype = dtype
+        self.pad_mode, self.dtype = pad_mode, dtype
         self.weight = nn.Parameter(torch.empty(
             out_ch, in_ch // groups, kernel, kernel, device=device))
         self.bias = nn.Parameter(torch.zeros(out_ch, device=device)) \
@@ -141,11 +186,13 @@ class Conv(nn.Module):
             nn.init.zeros_(self.bias)
 
     def forward(self, x):
+        pad = self.pad
+        if self.pad_mode != 'zeros' and pad:
+            x, pad = F.pad(x, (pad,) * 4, mode=self.pad_mode), 0
         # flax's two rounding points: the convolution rounds to the
         # compute dtype, then the bias is added in that dtype
         y = _convolve(F.conv2d, x, self.weight, self.dtype,
-                      stride=self.stride, padding=self.pad,
-                      groups=self.groups)
+                      stride=self.stride, padding=pad, groups=self.groups)
         if self.bias is None:
             return y
         return y + self.bias.to(self.dtype)[:, None, None]
@@ -482,13 +529,14 @@ class ConvReLU(nn.Module):
 
 def raw_conv(in_ch: int, out_ch: int, kernel: int, *, stride: int = 1,
              padding: int = None, groups: int = 1, bias: bool = True,
-             dtype=torch.float32, device=None) -> Conv:
+             pad_mode: str = 'zeros', dtype=torch.float32,
+             device=None) -> Conv:
     """A raw flax nn.Conv (lecun_normal kernel) with symmetric padding,
-    'SAME'-style by default: the blocks' `StridedConv` and the depthwise
-    and strided convs the zoo writes with nn.Conv."""
+    'SAME'-style by default: the blocks' `StridedConv` and the depthwise,
+    strided and reflect-padded convs the zoo writes with nn.Conv."""
     return Conv(in_ch, out_ch, kernel, stride=stride, padding=padding,
-                groups=groups, bias=bias, init=lecun_normal, dtype=dtype,
-                device=device)
+                groups=groups, bias=bias, init=lecun_normal,
+                pad_mode=pad_mode, dtype=dtype, device=device)
 
 
 def bicubic_up(x: torch.Tensor, scale: int, clip: bool = True):

@@ -1,5 +1,5 @@
 """Network factory (port of srcaco2_tpu/models/registry.py:define_g) for
-the ported nets (config/net_defaults.py:PORTED_NETS); every other net
+every net of the zoo (config/net_defaults.py:PORTED_NETS); another name
 raises NotImplementedError."""
 import torch
 import torch.nn as nn
@@ -142,13 +142,85 @@ def _memnet(netG, nt, kw):
                   **kw)
 
 
+def _dbpn(netG, nt, kw):
+    from srcaco2_tpu_torch.models.dbpn import DBPN
+    return DBPN(in_chans=_p(netG, nt, 'in_chans'),
+                upscale=_p(netG, nt, 'upscale'),
+                base_filter=_p(netG, nt, 'base_filter'),
+                feat=_p(netG, nt, 'feat'),
+                num_stages=_p(netG, nt, 'num_stages'),
+                remat_blocks=bool(netG.get('dbpn_remat_blocks', True)), **kw)
+
+
+def _prosr(netG, nt, kw):
+    from srcaco2_tpu_torch.models.prosr import ProSR
+    return ProSR(in_chans=_p(netG, nt, 'in_chans'),
+                 upscale=_p(netG, nt, 'upscale'),
+                 num_init_features=_p(netG, nt, 'num_init_features'),
+                 growth_rate=_p(netG, nt, 'growth_rate'),
+                 bn_size=_p(netG, nt, 'bn_size'),
+                 max_num_feature=_p(netG, nt, 'max_num_feature'),
+                 level_config=_p(netG, nt, 'level_config'),
+                 res_factor=_p(netG, nt, 'res_factor'),
+                 block_compression=_p(netG, nt, 'block_compression'),
+                 ps_woReLU=bool(netG.get(f'{safe_str_var(nt)}_ps_woReLU',
+                                         False)), **kw)
+
+
+def _edsr_liif(netG, nt, kw):
+    from srcaco2_tpu_torch.models.edsr_liif import EDSRLIIF
+    return EDSRLIIF(in_chans=_p(netG, nt, 'in_chans'),
+                    upscale=_p(netG, nt, 'upscale'),
+                    n_feats=_p(netG, nt, 'n_feats'),
+                    n_resblocks=_p(netG, nt, 'n_resblocks'),
+                    res_scale=_p(netG, nt, 'res_scale'),
+                    local_ensemble=_p(netG, nt, 'local_ensemble'),
+                    feat_unfold=_p(netG, nt, 'feat_unfold'),
+                    cell_decode=_p(netG, nt, 'cell_decode'), **kw)
+
+
+def _dsr_splines(netG, nt, kw):
+    from srcaco2_tpu_torch.models.dsr_splines import DSRSplines
+    return DSRSplines(in_planes=_p(netG, nt, 'in_planes'),
+                      upscale=_p(netG, nt, 'upscale'),
+                      in_ksz=_p(netG, nt, 'in_ksz'),
+                      splinenet_type=_p(netG, nt, 'splinenet_type'),
+                      n_splines_per_color=_p(netG, nt,
+                                             'n_splines_per_color'),
+                      color_min=_p(netG, nt, 'color_min'),
+                      color_max=_p(netG, nt, 'color_max'),
+                      use_local_residual=_p(netG, nt, 'use_local_residual'),
+                      use_global_residual=_p(netG, nt,
+                                             'use_global_residual'), **kw)
+
+
+def _csrcnn(netG, nt, kw):
+    from srcaco2_tpu_torch.models.csrcnn import CSRCNN
+    return CSRCNN(in_planes=_p(netG, nt, 'in_planes'),
+                  upscale=_p(netG, nt, 'upscale'),
+                  net_type=_p(netG, nt, 'net_type'),
+                  in_ksz=_p(netG, nt, 'in_ksz'),
+                  ngroups=_p(netG, nt, 'ngroups'),
+                  inner_channel=_p(netG, nt, 'inner_channel'),
+                  norm_groups=_p(netG, nt, 'norm_groups'),
+                  channel_mults=_p(netG, nt, 'channel_mults'),
+                  res_blocks=_p(netG, nt, 'res_blocks'),
+                  dropout=_p(netG, nt, 'dropout'),
+                  use_global_residual=_p(netG, nt, 'use_global_residual'),
+                  use_local_residual=netG.get(
+                      f'{safe_str_var(nt)}_use_local_residual', False),
+                  net_task=netG.get('net_task', constants.REGRESSION), **kw)
+
+
 _BUILD = {constants.SWINIR: _swinir, constants.SRCNN: _srcnn,
           constants.VDSR: _vdsr, constants.DFCAN: _dfcan,
           constants.ENLCN: _enlcn, constants.OMNISR: _omnisr,
           constants.SRFBN: _srfbn, constants.MSLAPSR: _mslapsr,
           constants.ACT: _act, constants.NLSN: _nlsn,
           constants.GRL: _grl, constants.DRRN: _drrn,
-          constants.MEMNET: _memnet}
+          constants.MEMNET: _memnet, constants.DBPN: _dbpn,
+          constants.PROSR: _prosr, constants.EDSR_LIIF: _edsr_liif,
+          constants.DSRSPLINES: _dsr_splines, constants.CSRCNN: _csrcnn}
 assert set(_BUILD) == set(PORTED_NETS)
 
 
@@ -163,8 +235,7 @@ def define_g(args: dict, device=None, seed: int = 0) -> nn.Module:
     nt = netG['net_type']
     if nt not in _BUILD:
         raise NotImplementedError(
-            f'{nt}: not ported yet (ported: {", ".join(PORTED_NETS)}; see '
-            'ROADMAP.md)')
+            f'{nt}: no such net (nets: {", ".join(PORTED_NETS)})')
     dtype = torch.bfloat16 if args.get('amp', False) else torch.float32
     model = _BUILD[nt](netG, nt, dict(dtype=dtype,
                                       device=resolve_device(device)))

@@ -28,16 +28,21 @@ def model_outputs(raw) -> dict:
     return raw if isinstance(raw, dict) else {'out': raw}
 
 
-def net_input(net_type: str, batch: dict, netG: dict = None) -> torch.Tensor:
-    """Pre-upsampling nets consume the bicubic pre-upscale (SRCNN and
-    non-pyramid CSR-CNN); the others the LR patch."""
+def pre_upsampled(net_type: str, netG: dict = None) -> bool:
+    """Whether the net takes the bicubic pre-upscale of the LR image
+    (SRCNN, and CSR-CNN but its pyramid variant) rather than the LR
+    image: the one rule of training, evaluation and serving."""
     if net_type in constants.PRE_UPSAMPLED_INPUT_NETS:
-        return batch['l_to_h_img']
-    if net_type == constants.CSRCNN:
-        sub = (netG or {}).get('csrcnn_net_type', constants.NET_TYPE_UNET)
-        if sub != constants.NET_TYPE_PYRAMID:
-            return batch['l_to_h_img']
-    return batch['l_im']
+        return True
+    return (net_type == constants.CSRCNN
+            and (netG or {}).get('csrcnn_net_type', constants.NET_TYPE_UNET)
+            != constants.NET_TYPE_PYRAMID)
+
+
+def net_input(net_type: str, batch: dict, netG: dict = None) -> torch.Tensor:
+    """The pre-upscale for a pre-upsampling net (pre_upsampled), else the
+    LR patch."""
+    return batch['l_to_h_img' if pre_upsampled(net_type, netG) else 'l_im']
 
 
 def compute_model_loss(net_type: str, master: MasterLoss, outputs: dict,

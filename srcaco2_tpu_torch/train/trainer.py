@@ -18,8 +18,9 @@ resumed run follow one trajectory on a device.
 
 Besides the JAX package's files the run writes `run_stats.json`: the
 kernel launches of training, validation and test (each wrapper's count,
-read around those phases), and for each window of steps between two
-flag reads its host time and peak device memory.
+read around those phases), for each window of steps between two flag
+reads its host time and peak device memory, and the process's peak
+device memory, allocated and reserved.
 
 Not ported (they raise at parse time or in the pipeline, ROADMAP.md):
 the local augs, ROI/EDT sampling, ppiw, the loss terms beyond l1 / l2 /
@@ -227,6 +228,12 @@ class Experiment:
                              self.args, bsz, phase, **kw)
 
     def write_stats(self, outdir: str):
+        if self.device.type == 'cuda':
+            # the process's peaks so far (training, validation and test)
+            self.stats['max_memory_allocated'] = \
+                torch.cuda.max_memory_allocated(self.device)
+            self.stats['max_memory_reserved'] = \
+                torch.cuda.max_memory_reserved(self.device)
         with open(os.path.join(outdir, 'run_stats.json'), 'w') as f:
             json.dump(self.stats, f, indent=1)
 

@@ -129,6 +129,13 @@ def test_port_scan_covers_the_eval_modules():
             'srcaco2_tpu_torch/models/omnisr.py',
             'srcaco2_tpu_torch/models/nlsn.py',
             'srcaco2_tpu_torch/models/grl.py',
+            'srcaco2_tpu_torch/models/dbpn.py',
+            'srcaco2_tpu_torch/models/prosr.py',
+            'srcaco2_tpu_torch/models/dsr_splines.py',
+            'srcaco2_tpu_torch/models/csrcnn.py',
+            'srcaco2_tpu_torch/models/edsr_liif.py',
+            'srcaco2_tpu_torch/losses/master.py',
+            'srcaco2_tpu_torch/inference/serve.py',
             'srcaco2_tpu_torch/ops/patches.py',
             'chip_smoke.py'} <= scanned
 

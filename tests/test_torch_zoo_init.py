@@ -40,7 +40,9 @@ from srcaco2_tpu_torch.train.steps import model_outputs
 
 ZOO = [n for n in PORTED_NETS if n != TC.SWINIR]
 SCALE, LR_HW = 8, 8
-LR_OF = {TC.NLSN: 12}
+# NLSN's chunks need 72 positions; DBPN (39 k12 projections of 64
+# channels) and ProSR (three pyramid levels of dense blocks) run on 4x4
+LR_OF = {TC.NLSN: 12, TC.DBPN: 4, TC.PROSR: 4}
 # draws of each package's init whose output scales are compared
 N_DRAWS = {TC.DRRN: 8}
 
@@ -55,14 +57,15 @@ def _few_threads():
 
 def _args(nt):
     args = {'scale': SCALE, 'n_channels': 1,
-            'h_size': SCALE * LR_OF.get(nt, LR_HW), 'amp': False}
+            'h_size': SCALE * LR_OF.get(nt, LR_HW), 'amp': False,
+            'color_min': 0, 'color_max': 255}
     args['netG'] = j_init_net_g({'net_type': nt}, args)
     return args
 
 
 def _input(nt):
     lr_hw = LR_OF.get(nt, LR_HW)
-    hw = SCALE * lr_hw if nt == TC.SRCNN else lr_hw
+    hw = SCALE * lr_hw if nt in (TC.SRCNN, TC.CSRCNN) else lr_hw
     return np.random.default_rng(0).uniform(
         0, 1, (1, 1, hw, hw)).astype(np.float32)
 

@@ -191,30 +191,31 @@ def test_one_train_step_matches_jax(nt):
 
 @pytest.mark.parametrize('nt', ZOO)
 def test_init_net_g_matches_jax(nt):
-    args = {'scale': 8, 'n_channels': 1, 'h_size': 128}
+    args = {'scale': 8, 'n_channels': 1, 'h_size': 128, 'color_min': 0,
+            'color_max': 255}
     assert t_init_net_g({'net_type': nt}, args) == \
         j_init_net_g({'net_type': nt}, args)
 
 
 def test_other_nets_raise():
+    """Every net of the zoo is ported; another name raises."""
+    assert set(PORTED_NETS) == set(TC.MODELS)
     args = {'scale': 8, 'n_channels': 1, 'h_size': 128}
-    for nt in TC.MODELS:
-        if nt in PORTED_NETS:
-            continue
-        with pytest.raises(NotImplementedError, match='ROADMAP.md'):
-            t_init_net_g({'net_type': nt}, args)
-        with pytest.raises(NotImplementedError, match='ROADMAP.md'):
-            t_define_g({'netG': {'net_type': nt}}, 'cpu')
+    with pytest.raises(NotImplementedError, match='no such net'):
+        t_init_net_g({'net_type': 'EDSR'}, args)
+    with pytest.raises(NotImplementedError, match='no such net'):
+        t_define_g({'netG': {'net_type': 'EDSR'}}, 'cpu')
 
 
 @pytest.mark.parametrize('nt', ZOO)
 def test_define_g_builds_the_jax_network(nt):
     """define_g at the full default width (x2, one channel): the port's
     state_dict names and shapes are the bridged JAX init's, exactly."""
-    args = {'scale': 2, 'n_channels': 1, 'h_size': 32, 'amp': False}
+    args = {'scale': 2, 'n_channels': 1, 'h_size': 32, 'amp': False,
+            'color_min': 0, 'color_max': 255}
     args['netG'] = j_init_net_g({'net_type': nt}, args)
     jm = j_define_g(args)
-    lr_hw = 32 if nt == TC.SRCNN else 16
+    lr_hw = 32 if nt in (TC.SRCNN, TC.CSRCNN) else 16
     shapes = jax.eval_shape(lambda k: jm.init(
         k, jnp.zeros((1, 1, lr_hw, lr_hw)), train=False)['params'],
         jax.random.key(0))
