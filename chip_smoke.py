@@ -97,6 +97,27 @@ non-zero:
                 checkpoint step, best model, tracker rows, eval equal to
                 the final test, 36 K1 + 36 K2 per step and 36 K5 per
                 validation / test forward (run_stats.json), nothing else
+  options_check the training options that are off by default, card
+                against the port's CPU path in f32 with TF32 off: each
+                of the 13 other loss terms (each hist / kde metric),
+                value and input grad (1e-5 relative / 1e-6 absolute);
+                Otsu and the chamfer EDT bit for bit on 8 synthetic
+                512^2 tiles; the EDT*ROI origin weights (1e-6);
+                assemble with every local aug and ppiw at the x8
+                entry's shapes from CPU draws (uint8 levels compared
+                where the card's division by 255 is one ulp off); the
+                card's origin draw (chi-square, 8 x 8 bins, p = 1e-3);
+                both regularizers on the flagship's params (orth 1e-4,
+                clip exactly); the zero derivative vectors of the
+                flagship's prediction on that batch and norm_laplace's
+                grad there (NaN where a Laplacian is 0); the card's ms
+                for the options' work at the entry's shapes
+  entry_opts    entry_x8 with every option: EDT*ROI sampling, the three
+                local augs at probability 1, ppiw with l1, the other
+                loss terms but norm_img_grad and norm_laplace (hist KL,
+                kde BH; see ENTRY), orth every 2 and clip every 3 steps;
+                entry_x8's gates, every logged term finite on the steps
+                not skipped, the skipped steps counted and not all
   entry_x2      the same at the defaults (x2, h_size 96: the windowed path
                 in training, no K1 / K2; f32; batch 8; 32 / 4 / 4 images,
                 2 epochs: 8 steps; K5 in f32 on 256x256 LR validation);
@@ -2539,6 +2560,261 @@ def liif_gather_check(dev):
     return rec
 
 
+# the options that are off by default: the loss terms beyond l1 / l2 /
+# SSIM / ce (each hist / kde metric apart), as flag sets of build_loss
+OPTION_TERMS = [
+    ('l2sum', {}), ('charbonnier', {}), ('boundpred', {}),
+    ('local_moments', {}), ('img_grad', {}), ('norm_img_grad', {}),
+    ('laplace', {}), ('norm_laplace', {}), ('loc_var', {}),
+    ('norm_loc_var', {}), ('w_sparsity', {})] + [
+    ('hist', {'hist_metric': m}) for m in ('KL', 'BHATTACHARYYA', '1', '2')
+] + [('kde', {'kde_metric': m}) for m in ('BHATTACHARYYA', '1', '2')]
+OPTION_TOL = {'value_rtol': 1e-5, 'value_atol': 1e-6, 'grad_rtol': 1e-5,
+              'grad_atol': 1e-6, 'orth_atol': 1e-4}
+# chi-square critical value at p = 1e-3 for 63 degrees of freedom (8 x 8
+# coarse bins; scipy.stats.chi2.ppf(0.999, 63))
+CHI2_63_P001 = 103.44237731987324
+OPTION_AUGS = dict(da_blur=True, da_blur_prob=1.0, da_dot_bin_noise=True,
+                   da_dot_bin_noise_prob=1.0, da_add_gaus_noise=True,
+                   da_add_gaus_noise_prob=1.0)
+
+
+def _to(x, dev):
+    """A Draws (and its BlockAugs) with every tensor moved to dev."""
+    import torch
+    if isinstance(x, tuple):
+        return type(x)(*(_to(v, dev) for v in x))
+    return x.to(dev) if isinstance(x, torch.Tensor) else x
+
+
+def _event_ms(fn, reps=5):
+    """Median ms of fn() over reps calls, CUDA events around each."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        out.append(a.elapsed_time(b))
+    return statistics.median(out)
+
+
+def options_check(dev, smi):
+    """The training options that are off by default, the card against
+    the port's CPU path in f32 with TF32 off, at small sizes: each loss
+    term (each hist / kde metric) on a (4, 1, 64, 64) prediction, value
+    and input grad (w_sparsity: the params' grads); Otsu's threshold and
+    the chamfer EDT bit for bit on 8 synthetic 512^2 cell tiles; the
+    EDT*ROI origin weights (1e-6 relative); `assemble` with every local
+    aug and ppiw at the x8 entry's shapes (batch 64, 128^2 HR patches)
+    from draws made on the CPU; the card's EDT*ROI origin draw (200,000
+    draws, 8 x 8 bins, chi-square below its p = 1e-3 value); both
+    regularizers on the flagship's params (orth within 1e-4, clip
+    exactly). Also the card's time for the options' work at the entry's
+    shapes. Returns (record, ok)."""
+    import numpy as np
+    import torch
+    from srcaco2_tpu_torch.config.defaults import get_config
+    from srcaco2_tpu_torch.data import pipeline as P
+    from srcaco2_tpu_torch.data import sampling as S
+    from srcaco2_tpu_torch.data.synthetic import _cell_image
+    from srcaco2_tpu_torch.losses.master import build_loss
+    from srcaco2_tpu_torch.models.registry import define_g
+    from srcaco2_tpu_torch.train import regularizers as REG
+    cpu = torch.device('cpu')
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tol = OPTION_TOL
+    rec = dict(tol=tol, terms=[], nvidia_smi=smi)
+    ok = True
+    r = np.random.default_rng(0)
+    p = r.uniform(0, 1, (4, 1, 64, 64)).astype(np.float32)
+    y = (np.round(r.uniform(0, 1, p.shape) * 255) / 255).astype(np.float32)
+    y[:, :, :8, :8] = 0.5
+    par = {'w': r.normal(0, 0.05, (64, 64)).astype(np.float32)}
+    for term, extra in OPTION_TERMS:
+        master = build_loss({**get_config(), term: True, **extra})
+        out = []
+        for d in (cpu, dev):
+            x = torch.from_numpy(p).to(d).requires_grad_()
+            w = {k: torch.from_numpy(v).to(d).requires_grad_()
+                 for k, v in par.items()}
+            v, _ = master({'out': x}, {'h_im': torch.from_numpy(y).to(d)},
+                          w, 0, torch.tensor(1.0, device=d))
+            g = torch.autograd.grad(v, [w['w']] if term == 'w_sparsity'
+                                    else [x])[0]
+            out.append((float(v.detach()), g.detach().cpu()))
+        (vc, gc), (vd, gd) = out
+        gerr = float((gd - gc).abs().max())
+        gref = float(gc.abs().max())
+        t_ok = (abs(vd - vc) <= tol['value_atol'] + tol['value_rtol']
+                * abs(vc) and gerr <= tol['grad_atol']
+                + tol['grad_rtol'] * gref and bool(torch.isfinite(gd).all()))
+        rec['terms'].append(dict(term=term, **extra, value_cpu=vc,
+                                 value_card=vd, grad_max_abs_err=gerr,
+                                 grad_max_abs=gref, ok=t_ok))
+        ok &= t_ok
+    # Otsu and the chamfer EDT at 512^2
+    tiles = np.stack([_cell_image(np.random.default_rng(s), 512)
+                      for s in range(8)])
+    th = [S.otsu_threshold_device(torch.from_numpy(tiles).to(d)).cpu()
+          for d in (cpu, dev)]
+    roi = (torch.from_numpy(tiles).float() >= th[0][:, None, None]).float()
+    edt = [S.edt_device(roi.to(d)).cpu() for d in (cpu, dev)]
+    rec['otsu_equal'] = bool(torch.equal(th[0], th[1]))
+    rec['edt_equal'] = bool(torch.equal(edt[0], edt[1]))
+    rec['edt_max'] = float(edt[0].max())
+    ok &= rec['otsu_equal'] and rec['edt_equal']
+    # the x8 entry's pipeline: 16 tiles, batch 64, every option
+    cfg = P.PipeConfig(scale=8, h_size=128, sample_tr_patch='edt*roi',
+                       ppiw=True, **OPTION_AUGS)
+    hr = torch.from_numpy(tiles[:, :, :, None].repeat(2, 0))
+    lr = torch.from_numpy(np.ascontiguousarray(
+        tiles[:, ::8, ::8, None].repeat(2, 0)))
+    table = torch.from_numpy(P.per_color_weights(hr.numpy(), 0.001))
+    w_cpu = P.OriginWeights(lr, (512, 512), cfg, cache=True)
+    w_dev = P.OriginWeights(lr.to(dev), (512, 512), cfg, cache=True)
+    werr = float(((w_dev.maps.cpu() - w_cpu.maps).abs()
+                  / w_cpu.maps.abs()).max())
+    rec['origin_weights_max_rel_err'] = werr
+    ok &= werr <= 1e-6
+    idxs = torch.randint(0, 16, (64,), generator=torch.Generator()
+                         .manual_seed(1))
+    draws = P.draw(torch.Generator().manual_seed(2), 64, cfg, (512, 512),
+                   w_cpu.of(idxs))
+    bc = P.assemble(hr, lr, idxs, draws, cfg, table)
+    bd = P.assemble(hr.to(dev), lr.to(dev), idxs.to(dev), _to(draws, dev),
+                    cfg, table.to(dev))
+    # uint8 levels: the card divides by 255 as a product with its
+    # reciprocal, one ulp off the CPU's quotient for some levels
+    def levels(t):
+        return torch.round(t.cpu().double() * 255)
+    l2h_d = (levels(bd['l_to_h_img']) - levels(bc['l_to_h_img'])).abs()
+    rec['assemble'] = dict(
+        max_abs_err={k: float((bd[k].cpu() - bc[k]).abs().max())
+                     for k in bc},
+        h_im_levels_equal=bool(torch.equal(levels(bd['h_im']),
+                                           levels(bc['h_im']))),
+        l_to_h_max_levels=float(l2h_d.max()),
+        l_to_h_exact_share=float((l2h_d == 0).float().mean()))
+    a = rec['assemble']
+    ok &= (all(v <= 1e-6 for k, v in a['max_abs_err'].items()
+               if not k.startswith('l_to_h'))
+           and a['h_im_levels_equal'] and a['l_to_h_max_levels'] <= 1.0
+           and a['l_to_h_exact_share'] >= 0.999)
+    # the card's origin draw against its weights
+    n = 200_000
+    wmap = w_dev.maps[:1]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x0, y0 = S.sample_origin_device(gen, wmap, k=n)
+    side = wmap.shape[-1]
+    binw = side // 8
+    seen = torch.bincount((x0 // binw * 8 + y0 // binw).reshape(-1).cpu(),
+                          minlength=64).double()
+    mass = wmap[0].reshape(8, binw, 8, binw).sum((1, 3)).double().cpu()
+    expected = (mass / mass.sum()).reshape(-1) * n
+    chi2 = float(((seen - expected) ** 2 / expected).sum())
+    rec['draw'] = dict(n=n, bins=64, chi2=chi2, critical_p001=CHI2_63_P001,
+                       inside=bool(int(x0.max()) < side
+                                   and int(y0.max()) < side))
+    ok &= chi2 <= CHI2_63_P001 and rec['draw']['inside']
+    # the regularizers on the flagship's params
+    model = define_g(flagship_args(), dev, seed=0)
+    twin = define_g(flagship_args(), cpu, seed=0)
+    twin.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    REG.regularizer_orth(model)
+    REG.regularizer_orth(twin)
+    orth_err = max(float((pd.detach().cpu() - pc.detach()).abs().max())
+                   for pd, pc in zip(model.parameters(), twin.parameters()))
+    with torch.no_grad():
+        # the same inputs on both devices: the card's orth result, x 40
+        twin.load_state_dict({k: v.cpu()
+                              for k, v in model.state_dict().items()})
+        for m in (model, twin):
+            for q in m.parameters():
+                q.mul_(40.0)
+    REG.regularizer_clip(dict(model.named_parameters()))
+    REG.regularizer_clip(dict(twin.named_parameters()))
+    clip_equal = all(torch.equal(pd.detach().cpu(), pc.detach())
+                     for pd, pc in zip(model.parameters(), twin.parameters()))
+    rec['regularizers'] = dict(orth_max_abs_err=orth_err,
+                               clip_equal=clip_equal)
+    ok &= orth_err <= tol['orth_atol'] and clip_equal
+    # the flagship's prediction (bf16-made, random seeded weights, in
+    # training mode) on the entry's batch: its zero derivative vectors,
+    # where the norm_ terms' grads are NaN (JAX's jnp.linalg.norm too)
+    fresh = define_g(flagship_args(), dev, seed=0).train()
+    with torch.no_grad():
+        fpred = fresh(bd['l_im']).float()
+    del fresh
+    from srcaco2_tpu_torch.losses import ops as LO
+    zeros = {name: int(((op(fpred) ** 2).sum(1) == 0).sum()) for name, op in
+             (('img_grad', LO.image_gradient),
+              ('laplace', LO.laplacian_filter),
+              ('loc_var', LO.local_variation))}
+    xg = fpred.clone().requires_grad_()
+    nl = build_loss({**get_config(), 'norm_laplace': True})
+    g = torch.autograd.grad(nl({'out': xg}, {'h_im': bd['h_im']})[0], xg)[0]
+    rec['flagship_prediction'] = dict(
+        pixels=fpred.numel(), unique_values=int(fpred.unique().numel()),
+        zero_derivative_vectors=zeros,
+        norm_laplace_grad_finite=bool(torch.isfinite(g).all()))
+    ok &= rec['flagship_prediction']['norm_laplace_grad_finite'] == (
+        zeros['laplace'] == 0)
+    # the card's time for the options' work at the entry's shapes
+    pred = torch.rand(64, 1, 128, 128, device=dev, requires_grad=True)
+    tgt = bd['h_im']
+    terms = build_loss({**get_config(), 'l1': True, **{
+        t: True for t, _ in OPTION_TERMS}, 'hist_metric': 'KL',
+        'kde_metric': 'BHATTACHARYYA'})
+    mparams = dict(model.named_parameters())
+
+    def loss_pass():
+        v, _ = terms({'out': pred}, {'h_im': tgt,
+                                     'h_per_pixel_weight':
+                                         bd['h_per_pixel_weight']},
+                     mparams, 0, torch.tensor(1.0, device=dev))
+        torch.autograd.grad(v, pred)
+    ddev = _to(draws, dev)
+    gdev = torch.Generator(device=dev).manual_seed(4)
+    tiles_d = torch.from_numpy(tiles).to(dev).repeat(8, 1, 1)
+    rec['ms'] = dict(
+        weight_maps_16_images=_event_ms(lambda: P.OriginWeights(
+            lr.to(dev), (512, 512), cfg, cache=True), reps=3),
+        otsu_64_images=_event_ms(lambda: S.otsu_threshold_device(tiles_d)),
+        edt_64_images=_event_ms(lambda: S.edt_device(
+            (tiles_d > 40).float()), reps=3),
+        draw=_event_ms(lambda: P.draw(gdev, 64, cfg, (512, 512),
+                                      w_dev.of(idxs.to(dev)))),
+        assemble=_event_ms(lambda: P.assemble(
+            hr.to(dev), lr.to(dev), idxs.to(dev), ddev, cfg,
+            table.to(dev))),
+        loss_terms_fwd_bwd=_event_ms(loss_pass, reps=3),
+        hist_fwd_bwd=_event_ms(lambda: torch.autograd.grad(
+            build_loss({**get_config(), 'hist': True})(
+                {'out': pred}, {'h_im': tgt})[0], pred), reps=3),
+        kde_fwd_bwd=_event_ms(lambda: torch.autograd.grad(
+            build_loss({**get_config(), 'kde': True})(
+                {'out': pred}, {'h_im': tgt})[0], pred), reps=3),
+        regularizer_orth=_event_ms(lambda: REG.regularizer_orth(model),
+                                   reps=3),
+        regularizer_clip=_event_ms(lambda: REG.regularizer_clip(mparams)))
+    torch.cuda.reset_peak_memory_stats(dev)
+    loss_pass()
+    rec['loss_terms_peak_memory_allocated'] = \
+        torch.cuda.max_memory_allocated(dev)
+    rec['ok'] = bool(ok)
+    return rec, bool(ok)
+
+
+ENTRY_OPT_TERMS = ('l2sum', 'charbonnier', 'boundpred', 'local_moments',
+                   'img_grad', 'laplace', 'loc_var', 'norm_loc_var', 'hist',
+                   'kde', 'w_sparsity')
 # the README's training command (README.md:91-100) with only the dataset
 # names, the roots and the epochs changed, and the x2 default run
 ENTRY = {
@@ -2550,6 +2826,33 @@ ENTRY = {
                '--eval_over_roi_also_model_select', 'True',
                '--swinir_upsampler', 'pixelshuffledirect', '--amp', 'True',
                '--batch_size', '64']),
+    # entry_x8 with every option that is off by default: EDT*ROI
+    # sampling, the three local augs always applied, ppiw with l1, the
+    # other loss terms at their defaults but norm_img_grad and
+    # norm_laplace, both regularizers. Those two are left out: the
+    # flagship's prediction, made in bf16, has pixels whose image
+    # gradient or Laplacian is exactly 0 (3 and 29 of 1,048,576 at the
+    # seeded weights), where the terms' norm has a NaN gradient, JAX's
+    # as the port's, so that nearly every step skips with them on
+    # (options_check records the counts and the NaN on the card)
+    'entry_opts': dict(
+        scale=8, n_train=128, n_val=8, n_test=8, epochs=3, steps=6,
+        opts=True,
+        flags=['--h_size', '128', '--l2', 'True', '--ssim', 'True',
+               '--ssim_lambda', '5.', '--ssim_window_s', '19',
+               '--eval_over_roi_also', 'True',
+               '--eval_over_roi_also_model_select', 'True',
+               '--swinir_upsampler', 'pixelshuffledirect', '--amp', 'True',
+               '--batch_size', '64', '--sample_tr_patch', 'edt*roi',
+               '--da_blur', 'True', '--da_blur_prob', '1.0',
+               '--da_dot_bin_noise', 'True', '--da_dot_bin_noise_prob',
+               '1.0', '--da_add_gaus_noise', 'True',
+               '--da_add_gaus_noise_prob', '1.0', '--ppiw', 'True',
+               '--l1', 'True']
+        + [f for t in ENTRY_OPT_TERMS for f in (f'--{t}', 'True')]
+        + ['--hist_metric', 'KL', '--kde_metric', 'BHATTACHARYYA',
+           '--G_regularizer_orthstep', '2', '--G_regularizer_clipstep',
+           '3']),
     'entry_x2': dict(
         scale=2, n_train=32, n_val=4, n_test=4, epochs=2, steps=8,
         flags=['--h_size', '96', '--l2', 'True', '--ssim', 'True',
@@ -2590,8 +2893,10 @@ def entry_phase(name, out_dir=None):
     step; x2: none in training, the windowed path; both: 36 K5 per
     validation / test forward and no other kernel)."""
     import pickle
+    import re
     import shutil
     import tempfile
+    import numpy as np
     from srcaco2_tpu_torch.data.synthetic import make_synthetic_dataset
     from srcaco2_tpu_torch.train import checkpoint as CKPT
     cfg = ENTRY[name]
@@ -2698,6 +3003,20 @@ def entry_phase(name, out_dir=None):
                   and steps == cfg['steps'] and len(val) >= cfg['epochs']
                   and all(test[ds]['psnr'] for ds in test) and same
                   and launches_ok)
+            if cfg.get('opts'):
+                # every term finite on the steps that were not skipped;
+                # skips counted from the trainer's warnings, and not all
+                with open(os.path.join(tmp, 'main.log')) as f:
+                    skipped = sorted({int(m) for m in re.findall(
+                        r'step (\d+): non-finite', f.read())})
+                per_iter = tracker['train']['period_iter']
+                kept = [i for i in range(steps) if i not in skipped]
+                rec.update(skipped_steps=skipped, terms=sorted(per_iter),
+                           terms_finite=all(
+                               np.isfinite(per_iter[t][i]) for t in per_iter
+                               for i in kept))
+                ok = (ok and rec['terms_finite'] and len(kept) > 0
+                      and len(per_iter) == len(ENTRY_OPT_TERMS) + 4)
         rec['wall_seconds'] = time.perf_counter() - t_all
         rec['ok'] = ok
         return rec, ok
@@ -3314,6 +3633,14 @@ def main() -> int:
         print('chip_smoke: windowed_profile failed', file=sys.stderr)
         return 1
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    opts, ok = options_check(dev, smi)
+    opts = emit('options_check', **opts,
+                phase_seconds=time.perf_counter() - t0)
+    if not ok:
+        print('chip_smoke: options_check failed', file=sys.stderr)
+        return 1
+    torch.cuda.empty_cache()
     # the entry runs are processes of their own, each far from the
     # card's memory (5.6 GB reserved at x8, 17.7 at x2, on an NVIDIA H100
     # 80GB HBM3 at 700 W), so they run at the same time
@@ -3431,7 +3758,8 @@ def main() -> int:
                        'kernel_time_wmsa': wmsa_times,
                        'eval_unfused': ev, 'eval_unfused_profile': ev_prof,
                        'windowed_check': windowed,
-                       'windowed_profile': wprof, **entries, **zoo,
+                       'windowed_profile': wprof, 'options_check': opts,
+                       **entries, **zoo,
                        'kernels': kernels}, f, indent=1)
     print(json.dumps({'kernels': kernels}))
     print(smi)

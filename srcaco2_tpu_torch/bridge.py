@@ -307,3 +307,65 @@ def optax_to_torch(opt_state, model: nn.Module, template: dict) -> dict:
                 raise KeyError(f'{section}.{key}: names differ from the '
                                'model parameters')
     return out
+
+
+def orth_kernels(model: nn.Module):
+    """The port parameters that the JAX package holds as 4-D flax
+    `kernel` leaves, the leaves its regularizer_orth acts on: for each
+    leaf, [names] stacked along the leaf's leading axes (in order) and
+    their kind, 'conv' ((O, I, kh, kw) of flax's (kh, kw, I, O)),
+    'convT' ((I, O, kh, kw) of flax's (kh, kw, I, O) flipped) or 'dense'
+    (flax's own (in, out)). Kernels that JAX stacks or vmaps to 5 axes
+    (a scanned stage's convs, GRL's scanned block pairs, DSR-Splines'
+    bank) are not 4-D leaves, so JAX's test leaves them out; the dense
+    kernels of SwinIR's scanned block pairs inside scanned stages stack
+    to (stages, pairs, in, out), 4 axes, and JAX's test takes them."""
+    from srcaco2_tpu_torch.models.blocks import ConvT
+    from srcaco2_tpu_torch.models.dsr_splines import SplineBank
+    from srcaco2_tpu_torch.models.grl import GRL
+    from srcaco2_tpu_torch.models.swinir import SwinIR
+    params = dict(model.named_parameters())
+    skip = [n + '.' for n, m in model.named_modules()
+            if isinstance(m, SplineBank)]
+    out = []
+    if isinstance(model, GRL):
+        skip += [f's{si}_b{i}.' for si, d in enumerate(model.depths)
+                 if d % 2 == 0 for i in range(d)]
+    if isinstance(model, SwinIR):
+        scanned = (len(model.depths) > 1 and len(set(model.depths)) == 1
+                   and len(set(model.num_heads)) == 1)
+        # scanned stages: every stage leaf has a leading stage axis
+        skip += ['stages.'] if scanned else \
+            [f'stages.{s}.blocks.' for s in range(len(model.depths))]
+        if scanned and not model.fused_blocks and model.depths[0] % 2 == 0:
+            half = model.depths[0] // 2
+            for leaf in ('attn.qkv', 'attn.proj', 'fc1', 'fc2'):
+                for m in (0, 1):
+                    out.append(([f'stages.{s}.blocks.{2 * p + m}.{leaf}'
+                                 f'.weight'
+                                 for s in range(len(model.depths))
+                                 for p in range(half)], 'dense'))
+    for name, p in params.items():
+        if p.ndim != 4 or any(name.startswith(s) for s in skip):
+            continue
+        owner = model.get_submodule(name.rpartition('.')[0])
+        out.append(([name], 'convT' if isinstance(owner, ConvT) else 'conv'))
+    return out
+
+
+def kernel_to_flax(w: torch.Tensor, kind: str) -> torch.Tensor:
+    """A port weight in its flax layout (orth_kernels' kinds)."""
+    if kind == 'conv':
+        return w.permute(2, 3, 1, 0)
+    if kind == 'convT':
+        return w.permute(2, 3, 0, 1).flip(0, 1)
+    return w
+
+
+def kernel_from_flax(a: torch.Tensor, kind: str) -> torch.Tensor:
+    """kernel_to_flax's inverse."""
+    if kind == 'conv':
+        return a.permute(3, 2, 0, 1)
+    if kind == 'convT':
+        return a.flip(0, 1).permute(2, 3, 0, 1)
+    return a

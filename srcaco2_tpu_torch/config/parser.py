@@ -182,8 +182,6 @@ def _sanity(config: dict):
         todo.append('distributed (multi-GPU) training')
     if config['scratch_root']:
         todo.append('the cluster scratch sync (scratch_root)')
-    if tr['G_regularizer_orthstep'] or tr['G_regularizer_clipstep']:
-        todo.append('the weight regularizers')
     if todo:
         raise NotImplementedError(
             f'{", ".join(todo)}: not ported yet (see ROADMAP.md)')

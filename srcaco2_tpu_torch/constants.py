@@ -69,9 +69,12 @@ NETS_CNN = {
     'snet_type8': [32] * 8,
 }
 
-# patch sampling (only uniform sampling is ported)
+# patch sampling (data/sampling.py)
 SAMPLE_UNIF = 'uniform'
-SAMPLE_PATCHES = [SAMPLE_UNIF, 'roi', 'edt', 'edt*roi']
+SAMPLE_ROI = 'roi'
+SAMPLE_EDT = 'edt'
+SAMPLE_EDTXROI = 'edt*roi'
+SAMPLE_PATCHES = [SAMPLE_UNIF, SAMPLE_ROI, SAMPLE_EDT, SAMPLE_EDTXROI]
 TH_AUTO = 'automatic_threshold'
 TH_FIX = 'fix_threshold'
 
@@ -110,7 +113,13 @@ def parse_caco2_name(name: str):
 
 # interpolation of the bicubic baseline
 INTER_BICUBIC = 'bicubic'
+
+# loss norms and distribution metrics (losses/master.py)
+NORM1 = '1'
 NORM2 = '2'
+NORM0EXP = '0EXP'
+KL = 'KL'
+BH = 'BHATTACHARYYA'
 
 # optimizers and schedules
 SGD = 'sgd'

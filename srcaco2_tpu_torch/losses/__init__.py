@@ -1,1 +1,2 @@
-"""Losses of the training step (the l1, l2 and neg-SSIM terms so far)."""
+"""Losses of the training step: MasterLoss and its terms (master.py),
+their operators (ops.py) and the extended log-barrier (elb.py)."""

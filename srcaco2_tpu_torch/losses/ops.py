@@ -1,10 +1,140 @@
-"""Train-time SSIM as banded matrix products (port of
-srcaco2_tpu/losses/ops.py:ssim_train and _gauss_band). The other loss
-operators of that module are not ported yet (see ROADMAP.md)."""
+"""Differentiable loss operators (port of srcaco2_tpu/losses/ops.py):
+derivatives, local statistics, soft histograms, KDE, and the train-time
+SSIM as banded matrix products. All inputs NCHW.
+
+The convolution operators (`image_gradient`, `laplacian_filter`,
+`local_variation`, `patch_moments`) convolve with f32 kernels in true
+f32 (TF32 off, JAX's Precision.HIGHEST) and, as JAX's
+lax.conv_general_dilated, refuse an input of another dtype (a bf16
+prediction) with a TypeError rather than cast it.
+"""
+import contextlib
 import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+
+from srcaco2_tpu_torch.data.transforms import reflect_pad
+
+
+def conv_f32(x: torch.Tensor, kernels: np.ndarray) -> torch.Tensor:
+    """VALID convolution of the f32 x (B,1,H,W) with the f32 kernels
+    (K,1,k,k), TF32 off."""
+    if x.dtype != torch.float32:
+        raise TypeError(f'convolution of a {x.dtype} input with float32 '
+                        f'kernels (the JAX operators refuse mixed dtypes)')
+    w = torch.as_tensor(kernels, device=x.device)
+    ctx = torch.backends.cudnn.flags(enabled=torch.backends.cudnn.enabled,
+                                     benchmark=False, deterministic=True,
+                                     allow_tf32=False) \
+        if x.is_cuda else contextlib.nullcontext()
+    with ctx:
+        return F.conv2d(x, w)
+
+
+def _conv_replicate(x: torch.Tensor, kernels: np.ndarray,
+                    pad: int) -> torch.Tensor:
+    """x: (B,1,H,W); kernels: (K,1,k,k) -> (B,K,H,W), replicate (edge)
+    padding."""
+    return conv_f32(F.pad(x, (pad, pad, pad, pad), mode='replicate'),
+                     kernels)
+
+
+_GRAD_KERNELS = np.stack([
+    np.array([[0, 0, 0], [-1, 0, 1], [0, 0, 0]], np.float32),
+    np.array([[0, -1, 0], [0, 0, 0], [0, 1, 0]], np.float32)])[:, None]
+_LAPLACE_KERNEL = np.array([[-1, -1, -1], [-1, 8, -1], [-1, -1, -1]],
+                           np.float32)[None, None]
+
+
+def image_gradient(x: torch.Tensor) -> torch.Tensor:
+    """First-order derivative: 2-channel (horizontal, vertical) map."""
+    return _conv_replicate(x, _GRAD_KERNELS, 1)
+
+
+def laplacian_filter(x: torch.Tensor) -> torch.Tensor:
+    """Second-order derivative (8-neighbor Laplacian)."""
+    return _conv_replicate(x, _LAPLACE_KERNEL, 1)
+
+
+@functools.lru_cache(maxsize=8)
+def _locvar_kernels(ksz: int) -> np.ndarray:
+    c = ksz // 2
+    ks = []
+    for i in range(ksz):
+        for j in range(ksz):
+            if i == c and j == c:
+                continue
+            k = np.zeros((ksz, ksz), np.float32)
+            k[c, c] = 1.0
+            k[i, j] = -1.0
+            ks.append(k)
+    return np.stack(ks)[:, None]
+
+
+def local_variation(x: torch.Tensor, ksz: int = 3) -> torch.Tensor:
+    """Center-minus-neighbor differences: (B, ksz^2-1, H, W)."""
+    return _conv_replicate(x, _locvar_kernels(ksz), ksz // 2)
+
+
+def patch_moments(x: torch.Tensor, ksz: int):
+    """Per-pixel mean and unbiased variance over a ksz x ksz reflected
+    window. x: (B,1,H,W) -> (avg, var) each (B, H*W)."""
+    xp = reflect_pad(x, (ksz - 1) // 2)
+    ones = np.ones((1, 1, ksz, ksz), np.float32)
+    n = ksz * ksz
+    mean = conv_f32(xp, ones) / n
+    var = (conv_f32(xp * xp, ones) - n * mean * mean) / (n - 1)
+    b = x.shape[0]
+    return mean.reshape(b, -1), torch.clamp(var, min=0.0).reshape(b, -1)
+
+
+def soft_histogram(x: torch.Tensor, bins: int = 256, vmin: float = 0.0,
+                   vmax: float = 1.0, sigma: float = 1e5) -> torch.Tensor:
+    """Differentiable histogram via sigmoid binning. x: (B, N) ->
+    (B, bins), f32 (a bf16 x is promoted by the f32 centers)."""
+    delta = (vmax - vmin) / bins
+    centers = vmin + delta * (torch.arange(bins, dtype=torch.float32,
+                                           device=x.device) + 0.5)
+    d = x[:, None, :] - centers[None, :, None]
+    h = torch.sigmoid(sigma * (d + delta / 2)) \
+        - torch.sigmoid(sigma * (d - delta / 2))
+    return h.sum(-1)
+
+
+def _linspace(vmin: float, vmax: float, n: int, device) -> torch.Tensor:
+    """jnp.linspace(vmin, vmax, n) in f32, bit for bit: vmin + i * step
+    with the f32 step, the last point vmax."""
+    step = torch.tensor((vmax - vmin) / (n - 1), dtype=torch.float32)
+    out = vmin + torch.arange(n, dtype=torch.float32) * step
+    out[-1] = vmax
+    return out.to(device)
+
+
+def gaussian_kde(x: torch.Tensor, nbins: int = 256,
+                 bw: float = 1.0 / 255 ** 2, vmin: float = 0.0,
+                 vmax: float = 1.0) -> torch.Tensor:
+    """Gaussian KDE evaluated on a fixed grid. x: (B,C,H,W) -> (B, nbins),
+    normalized to sum 1 per sample."""
+    xf = x.reshape(x.shape[0], -1)
+    centers = _linspace(vmin, vmax, nbins, x.device)
+    d2 = (xf[:, None, :] - centers[None, :, None]) ** 2
+    dens = torch.exp(-0.5 * d2 / bw).mean(-1)
+    return dens / torch.clamp(dens.sum(-1, keepdim=True), min=1e-12)
+
+
+def kl_2_gaussians(src_m, src_v, trg_m, trg_v, eps: float = 1.0):
+    """KL(N(trg) || N(src)) per element."""
+    sv = src_v + eps
+    tv = trg_v + eps
+    return (torch.log(torch.sqrt(sv) / torch.sqrt(tv))
+            + (tv + (trg_m - src_m) ** 2) / (2.0 * sv) - 0.5)
+
+
+def bhattacharyya(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """(B, D) distributions -> (B,) BC coefficient."""
+    return torch.sqrt(p * q).sum(1)
 
 
 @functools.lru_cache(maxsize=32)

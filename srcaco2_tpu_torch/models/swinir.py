@@ -313,6 +313,8 @@ class SwinIR(nn.Module):
         self.in_chans, self.upscale = in_chans, upscale
         self.img_range, self.window_size = img_range, window_size
         self.upsampler, self.dtype = upsampler, dtype
+        self.depths, self.num_heads = tuple(depths), tuple(num_heads)
+        self.fused_blocks = fused_blocks
         kw = dict(dtype=dtype, device=device)
         if in_chans == 3:
             mean = torch.tensor([0.4488, 0.4371, 0.4040]).reshape(1, 3, 1, 1)

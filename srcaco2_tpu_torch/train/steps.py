@@ -115,13 +115,17 @@ def loss_and_grads(model, master: MasterLoss, net_type: str, params: dict,
 def make_train_step(model, master: MasterLoss, tx, net_type: str,
                     pipe_cfg: P.PipeConfig, e_decay: float = 0.0,
                     steps_per_epoch: int = 1,
+                    ppiw_table: torch.Tensor = None,
                     netG: dict = None,
                     steps_per_call: int = 1) -> Callable:
     """The train step: (state, hr_u8, lr_u8, idxs, draws) -> (state,
     loss holder, ok flag), where draws = pipeline.draw(gen, ...) are the
-    batch's patch origins and dihedral modes (JAX derives them from a
-    key inside the step) and, in draws.lsh, the generator of the step's
-    hash rotations (NLSN). state.params must be the model's parameters;
+    batch's patch origins, dihedral modes and local-aug choices (JAX
+    derives them from a key inside the step) and, in draws.lsh, the
+    generator of the step's hash rotations (NLSN). ppiw_table (256,) on
+    the stacks' device gives the batch its per-pixel weights
+    (h_per_pixel_weight) when pipe_cfg.ppiw is on. state.params must be
+    the model's parameters;
     the step updates them, the optimizer state and the EMA in place.
 
     steps_per_call = K > 1, the superstep (JAX: a lax.scan over K steps
@@ -132,12 +136,11 @@ def make_train_step(model, master: MasterLoss, tx, net_type: str,
     in one call equal K calls of one step bit for bit. The caller picks
     the chunk's K (the trainer never lets a call cross an epoch, eval or
     save boundary), so idxs may hold fewer than steps_per_call rows."""
-    P.check_ported(pipe_cfg)
 
     def step_fn(state: TrainState, hr_u8, lr_u8, idxs, draws):
         epoch = torch.div(state.step, steps_per_epoch,
                           rounding_mode='floor')
-        batch = P.assemble(hr_u8, lr_u8, idxs, draws, pipe_cfg)
+        batch = P.assemble(hr_u8, lr_u8, idxs, draws, pipe_cfg, ppiw_table)
         loss, holder, pred, grads = loss_and_grads(
             model, master, net_type, state.params, batch, epoch,
             state.elb_t, netG, lsh=draws.lsh)

@@ -3,7 +3,9 @@ srcaco2_tpu/train/trainer.py:Experiment).
 
 The JAX package's loop and order of host actions: the step-0 bicubic
 validation; chunks of up to train_steps_per_call steps that never cross
-an epoch, eval, save or end boundary; the skip / corruption flags read in
+an epoch, eval, save, regularizer or end boundary; the weight
+regularizers (orth, clip) after the steps they fall on; the skip /
+corruption flags read in
 one stacked transfer every failure_surface_lag steps and before each
 eval and save; the epoch's losses read in one stacked transfer at its
 end, then the ELB t update, test_epoch_freq and plot_epoch_freq; the
@@ -22,10 +24,15 @@ read around those phases), for each window of steps between two flag
 reads its host time and peak device memory, and the process's peak
 device memory, allocated and reserved.
 
-Not ported (they raise at parse time or in the pipeline, ROADMAP.md):
-the local augs, ROI/EDT sampling, ppiw, the loss terms beyond l1 / l2 /
-SSIM, the regularizers, the reconstruct task, multi-GPU and the
-superstep probe that runs only under a mesh, and the cluster sync.
+ROI / EDT patch sampling draws from the origin weight maps of the
+staged train images (data/pipeline.py:OriginWeights), kept for the whole
+stack while they take at most an eighth of the card's memory
+(pipeline.cache_budget) and else computed for each step's batch; ppiw
+builds its color table from the staged train HR stack.
+
+Not ported (they raise at parse time, ROADMAP.md): the reconstruct
+task, multi-GPU and the superstep probe that runs only under a mesh,
+and the cluster sync.
 """
 import json
 import os
@@ -39,13 +46,17 @@ import torch
 from srcaco2_tpu_torch import constants, resolve_device
 from srcaco2_tpu_torch.config import yaml_io
 from srcaco2_tpu_torch.data import pipeline as P
+from srcaco2_tpu_torch.data import sampling as SMP
 from srcaco2_tpu_torch.data.dataset import SRDataset, load_dataset, SEP
+from srcaco2_tpu_torch.losses.elb import update_t
 from srcaco2_tpu_torch.losses.master import build_loss
 from srcaco2_tpu_torch.models.registry import define_g
 from srcaco2_tpu_torch.ops.launches import launch_counts
 from srcaco2_tpu_torch.train import checkpoint as CKPT
 from srcaco2_tpu_torch.train.evaluator import (fast_eval, log_perf,
                                                make_interpolate_forward)
+from srcaco2_tpu_torch.train.regularizers import (regularizer_clip,
+                                                  regularizer_orth)
 from srcaco2_tpu_torch.train.schedule import build_optimizer
 from srcaco2_tpu_torch.train.state import TrainState
 from srcaco2_tpu_torch.train.steps import make_eval_forward, make_train_step
@@ -144,7 +155,6 @@ class Experiment:
         self.master = build_loss(args)
         self.tx = build_optimizer(args['train'])
         self.pipe_cfg = P.from_args(args)
-        P.check_ported(self.pipe_cfg)
         bs = int(args['batch_size'])
         self.batch_size = bs
         self.steps_per_epoch = max(1, len(self.train_ds) // bs)
@@ -170,12 +180,29 @@ class Experiment:
         self.state = TrainState.create(
             dict(self.model.named_parameters()), self.tx, e_decay,
             elb_init_t=float(args.get('elb_init_t', 1.0)))
+        self.origins = None
+        cfg = self.pipe_cfg
+        if cfg.sample_tr_patch != constants.SAMPLE_UNIF:
+            self._warn_edt_cap()
+            hr_hw = self.train_ds.hr_dev.shape[1:3]
+            cache = P.OriginWeights.nbytes(len(self.train_ds), hr_hw, cfg) \
+                <= P.cache_budget(dev)
+            self.origins = P.OriginWeights(self.train_ds.lr_dev, hr_hw, cfg,
+                                           cache)
+            DLLogger.log(f'{cfg.sample_tr_patch} patch sampling: origin '
+                         f'weights {"kept" if cache else "per step"}')
+        self.ppiw_table = None
+        if args.get('ppiw', False):
+            self.ppiw_table = torch.as_tensor(P.per_color_weights(
+                self.train_ds.hr,
+                float(args.get('ppiw_min_per_col_w', 0.001)))).to(dev)
         self.steps_per_call = max(
             1, int(args['train'].get('train_steps_per_call', 1) or 1))
         self.train_step = make_train_step(
             self.model, self.master, self.tx, nt, self.pipe_cfg,
             e_decay=e_decay, steps_per_epoch=self.steps_per_epoch,
-            netG=args['netG'], steps_per_call=self.steps_per_call)
+            ppiw_table=self.ppiw_table, netG=args['netG'],
+            steps_per_call=self.steps_per_call)
         # amp without amp_eval: evaluate an f32 twin of the same weights
         eval_model = self.model
         if args.get('amp', False) and not args.get('amp_eval', False):
@@ -201,6 +228,24 @@ class Experiment:
                       'model_forwards': Counter(), 'train_windows': []}
 
     # ------------------------------------------------------------ helpers
+    def _warn_edt_cap(self):
+        """Warn when the device EDT's chamfer cap (48) binds: the true
+        interior depth of the first staged HR image's ROI, on the host
+        (JAX's trainer.py:167-186)."""
+        if self.pipe_cfg.sample_tr_patch not in (constants.SAMPLE_EDT,
+                                                 constants.SAMPLE_EDTXROI):
+            return
+        hr0 = np.asarray(self.train_ds.hr[0])
+        hr0 = hr0[..., 0] if hr0.ndim == 3 else hr0
+        depth = float(SMP.edt_map(SMP.roi_mask(
+            hr0, self.pipe_cfg.th_style, self.pipe_cfg.th_fix)).max())
+        if depth > SMP.EDT_CAP:
+            DLLogger.log(
+                f'[warn] EDT sampling: true interior depth {depth:.0f}px '
+                f'exceeds the device chamfer cap ({SMP.EDT_CAP}); '
+                f'deepest-interior pixels share the max weight (sampling '
+                f'slightly flattened there)')
+
     def eval_params(self):
         """Weights for validation / model selection / test: netE (EMA)
         with train.eval_netE and E_decay > 0, else netG; with the model's
@@ -409,6 +454,9 @@ class Experiment:
 
         spc = self.steps_per_call
         state = self.state
+        # periodic weight regularizers (model_plain.py:365-387)
+        orthstep = int(args['train'].get('G_regularizer_orthstep', 0) or 0)
+        clipstep = int(args['train'].get('G_regularizer_clipstep', 0) or 0)
         while step < total_steps:
             epoch = step // spe
             if step == start_step or step % spe == 0:
@@ -416,16 +464,20 @@ class Experiment:
                                        self.device)
             i_in_epoch = step % spe
             # chunk: up to steps_per_call steps, never crossing an epoch,
-            # eval, save or end boundary
+            # eval, save, regularizer or end boundary
             k = min(spc, spe - i_in_epoch, total_steps - step)
-            for per in (n_check_eval, n_check_save):
-                k = min(k, per - step % per)
+            for per in (n_check_eval, n_check_save, orthstep, clipstep):
+                if per:
+                    k = min(k, per - step % per)
             idxs = perm[i_in_epoch * bs:(i_in_epoch + k) * bs].reshape(k, bs)
-            draws = [P.draw(R.step_generator(self.seed, step + j,
-                                             self.device),
-                            bs, self.pipe_cfg, hr_hw)._replace(
-                                lsh=R.lsh_generator(self.seed, step + j))
-                     for j in range(k)]
+            draws = []
+            for j in range(k):
+                weights = None if self.origins is None \
+                    else self.origins.of(idxs[j])
+                draws.append(P.draw(
+                    R.step_generator(self.seed, step + j, self.device), bs,
+                    self.pipe_cfg, hr_hw, weights)._replace(
+                        lsh=R.lsh_generator(self.seed, step + j)))
             if not window:
                 window.update(first=step, t0=time.perf_counter())
                 if self.device.type == 'cuda':
@@ -444,6 +496,10 @@ class Experiment:
             pending.append((step - k, holder['_flags']))
             if sum(d.numel() for _, d in pending) >= flag_lag:
                 drain_flags()
+            if orthstep > 0 and step % orthstep == 0:
+                regularizer_orth(self.model)
+            if clipstep > 0 and step % clipstep == 0:
+                regularizer_clip(state.params)
             for name, v in holder.items():
                 if not name.startswith('_'):
                     epoch_losses.setdefault(name, []).append(v)
@@ -479,9 +535,8 @@ class Experiment:
                              f'({time.perf_counter() - t_start:.1f}s '
                              f'elapsed)')
                 epoch_losses = {}
-                state.elb_t = torch.clamp(
-                    state.elb_t * self.master.elb_mulcoef,
-                    max=self.master.elb_max_t)
+                state.elb_t = update_t(state.elb_t, self.master.elb_mulcoef,
+                                       self.master.elb_max_t)
                 if test_epoch_freq and new_epoch % test_epoch_freq == 0:
                     self.state = state
                     self.evaluate_test(step)

@@ -51,3 +51,28 @@ def test_entry_run_error_is_raised():
 
     with pytest.raises(RuntimeError, match='DBPN'):
         cs._within_budget(cs.ZOO, need, 10.0, 4, run)
+
+
+def test_entry_opts_turns_every_option_on():
+    """entry_opts' flags parse through the port's command line with every
+    option on: EDT*ROI sampling, the three local augs always applied,
+    ppiw with l1, the loss terms it names (all 13 but norm_img_grad and
+    norm_laplace, which skip nearly every bf16 step of the flagship) and
+    both regularizers."""
+    from srcaco2_tpu_torch.config.parser import get_args
+    from srcaco2_tpu_torch.data import pipeline as P
+    from srcaco2_tpu_torch.losses.master import build_loss
+    cs = _chip_smoke()
+    args = get_args(['--net_type', 'SwinIR', '--scale', '8']
+                    + cs.ENTRY['entry_opts']['flags'])
+    cfg = P.from_args(args)
+    assert cfg.sample_tr_patch == 'edt*roi' and cfg.ppiw
+    for aug in ('da_blur', 'da_dot_bin_noise', 'da_add_gaus_noise'):
+        assert getattr(cfg, aug) and getattr(cfg, f'{aug}_prob') == 1.0
+    names = build_loss(args).names
+    assert set(cs.ENTRY_OPT_TERMS) | {'l1', 'l2', 'ssim'} == \
+        set(names) - {'total'}
+    assert set(cs.ENTRY_OPT_TERMS) == {
+        t for t, _ in cs.OPTION_TERMS} - {'norm_img_grad', 'norm_laplace'}
+    assert args['train']['G_regularizer_orthstep'] == 2
+    assert args['train']['G_regularizer_clipstep'] == 3

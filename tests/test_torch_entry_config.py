@@ -75,6 +75,17 @@ def test_refused_settings_raise():
         TPARSE.get_args(['--distributed', 'True'])
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         TPARSE.get_args(['--task', 'reconstruct'])
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        TPARSE.get_args(['--scratch_root', '/tmp/scratch'])
+    # the options ported since parse: the regularizers, sampling, the
+    # local augs, ppiw and the loss terms
+    args = TPARSE.get_args(
+        ['--G_regularizer_orthstep', '2', '--G_regularizer_clipstep', '3',
+         '--sample_tr_patch', 'edt*roi', '--da_blur', 'True', '--ppiw',
+         'True', '--l1', 'True', '--hist', 'True', '--kde', 'True',
+         '--w_sparsity', 'True'])
+    assert args['train']['G_regularizer_orthstep'] == 2
+    assert args['sample_tr_patch'] == 'edt*roi' and args['ppiw']
     with pytest.raises(ValueError, match='invalid configuration'):
         TPARSE.get_args(['--scale', '3'])
 

@@ -116,11 +116,19 @@ def test_port_draws_range_and_modes():
 
 
 def test_unported_pipeline_options_raise():
+    """The pipeline options that raised NotImplementedError before they
+    were ported now draw their choices; ROI sampling without the origin
+    weights raises. The defaults leave every option off."""
     for kw in (dict(da_blur=True), dict(ppiw=True),
-               dict(sample_tr_patch=JC.SAMPLE_ROI)):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            TP.draw(torch.Generator(), 2, TP.PipeConfig(4, 32, **kw),
+               dict(da_dot_bin_noise=True, da_add_gaus_noise=True)):
+        d = TP.draw(torch.Generator(), 2, TP.PipeConfig(4, 32, **kw),
                     (64, 64))
+        assert d.x0.shape == (2,)
+    assert d.dot is not None and d.gaus is not None and d.blur is None
+    with pytest.raises(ValueError, match='weights'):
+        TP.draw(torch.Generator(), 2,
+                TP.PipeConfig(4, 32, sample_tr_patch=JC.SAMPLE_ROI),
+                (64, 64))
     args = t_get_config()
     args.update(scale=4, h_size=32, n_channels=1)
     assert TP.from_args(args) == TP.PipeConfig(scale=4, h_size=32)
@@ -166,8 +174,13 @@ def test_ssim_and_master_loss_match_jax():
     for k in mt.names:
         np.testing.assert_allclose(float(hold_t[k]), float(hold_j[k]),
                                    atol=1e-6)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        t_build_loss({**ta, 'charbonnier': True})
+    # charbonnier, unported before, now builds and matches JAX
+    cj, hj = j_build_loss({**ja, 'charbonnier': True})(
+        {'out': jnp.asarray(p)}, {'h_im': jnp.asarray(y)})
+    ct, ht = t_build_loss({**ta, 'charbonnier': True})(
+        {'out': torch.from_numpy(p)}, {'h_im': torch.from_numpy(y)})
+    np.testing.assert_allclose(float(ht['charbonnier']),
+                               float(hj['charbonnier']), atol=1e-6)
 
 
 # --------------------------------------------------- schedule, optim
