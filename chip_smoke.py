@@ -118,6 +118,25 @@ non-zero:
                 kde BH; see ENTRY), orth every 2 and clip every 3 steps;
                 entry_x8's gates, every logged term finite on the steps
                 not skipped, the skipped steps counted and not all
+  ddp_check     the port's data-parallel train step on 2 ranks (parallel/
+                mesh.py; NCCL with a card each on two cards, else 2
+                processes on card 0 over gloo) against the one-process
+                step over the same global batch and draws: the
+                flagship at batch 128 (64 per rank) in f32 (params, Adam
+                moments, EMA within 1e-5 relative L2) and bf16
+                (bf16_grads_held against the f32 steps); 36 K1 and 36 K2
+                per step on each rank; MemNet (zoo_check's depth, f32,
+                batch 8): running statistics within 1e-6; a NaN in rank
+                1's shard skips the step on both ranks; per rank ms per
+                step, the gradient all-reduce's ms and bytes, peak
+                memory; the bf16 step in this process with a world-of-one
+                NCCL grid against no grid, in turns (the layer's cost)
+  entry_ddp     entry_x8 under `python -m torch.distributed.run
+                --nproc_per_node min(2, cards) -m srcaco2_tpu_torch.main
+                --distributed True` (NCCL), then `eval` in one process;
+                entry_x8's gates, only rank 0 writes in the experiment
+                tree (audited), the final params bit-equal to
+                entry_x8's with one card (a world of one)
   entry_x2      the same at the defaults (x2, h_size 96: the windowed path
                 in training, no K1 / K2; f32; batch 8; 32 / 4 / 4 images,
                 2 epochs: 8 steps; K5 in f32 on 256x256 LR validation);
@@ -2853,6 +2872,16 @@ ENTRY = {
         + ['--hist_metric', 'KL', '--kde_metric', 'BHATTACHARYYA',
            '--G_regularizer_orthstep', '2', '--G_regularizer_clipstep',
            '3']),
+    # entry_x8 under torchrun with --distributed True (NCCL): one rank
+    # per card, at most 2 (entry_ddp_nproc); then `eval` in one process
+    'entry_ddp': dict(
+        scale=8, n_train=128, n_val=8, n_test=8, epochs=3, steps=6,
+        ddp=True, flags=['--h_size', '128', '--l2', 'True', '--ssim',
+                         'True', '--ssim_lambda', '5.', '--ssim_window_s',
+                         '19', '--eval_over_roi_also', 'True',
+                         '--eval_over_roi_also_model_select', 'True',
+                         '--swinir_upsampler', 'pixelshuffledirect', '--amp',
+                         'True', '--batch_size', '64']),
     'entry_x2': dict(
         scale=2, n_train=32, n_val=4, n_test=4, epochs=2, steps=8,
         flags=['--h_size', '96', '--l2', 'True', '--ssim', 'True',
@@ -2863,24 +2892,81 @@ ENTRY = {
 }
 
 
+# a sitecustomize for entry_ddp's processes (written at run time, first on
+# their PYTHONPATH): it runs the one it shadows, if any, then records in
+# <SRCACO2_AUDIT_LOG><RANK or launcher>.txt every path under
+# SRCACO2_AUDIT_ROOT that the process opens for writing, creates,
+# renames or removes (sys audit events)
+AUDIT_SITE = """import importlib.machinery, importlib.util, os, sys
+_here = os.path.dirname(os.path.abspath(__file__))
+_spec = importlib.machinery.PathFinder.find_spec('sitecustomize', [
+    p for p in sys.path if os.path.abspath(p or os.curdir) != _here])
+if _spec is not None:
+    _mod = importlib.util.module_from_spec(_spec)
+    _spec.loader.exec_module(_mod)
+_root = os.environ.get('SRCACO2_AUDIT_ROOT')
+if _root:
+    _root = os.path.abspath(_root)
+    _fd = os.open(os.environ['SRCACO2_AUDIT_LOG']
+                  + os.environ.get('RANK', 'launcher') + '.txt',
+                  os.O_WRONLY | os.O_CREAT | os.O_APPEND, 0o644)
+    _wr = os.O_WRONLY | os.O_RDWR | os.O_CREAT | os.O_APPEND
+    _ev = ('os.mkdir', 'os.rename', 'os.replace', 'os.remove',
+           'shutil.copyfile', 'shutil.rmtree')
+
+    def _hook(event, args):
+        if event == 'open':
+            path, mode, flags = args
+            w = (isinstance(mode, str) and any(c in mode for c in 'wax+')
+                 ) or (isinstance(flags, int) and flags & _wr)
+            paths = [path] if w else []
+        elif event in _ev:
+            paths = [a for a in args[:2]
+                     if isinstance(a, (str, bytes, os.PathLike))]
+        else:
+            return
+        for path in paths:
+            try:
+                path = os.path.abspath(os.fsdecode(path))
+            except TypeError:
+                continue
+            if path == _root or path.startswith(_root + os.sep):
+                os.write(_fd, (event + ' ' + path + chr(10)).encode())
+    sys.addaudithook(_hook)
+"""
+
+
+def entry_ddp_nproc():
+    import torch
+    return min(2, torch.cuda.device_count())
+
+
 def _run_entry(cmd, cwd, log, timeout=600, env=None):
     """One entry point in a subprocess of this interpreter, the repo on
-    its path, `env` added to this process's environment; (return code,
-    seconds). Its output goes to `log`."""
-    env = dict(os.environ, **(env or {}),
-               PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    its path (after env's PYTHONPATH, if it has one), `env` added to
+    this process's environment; (return code, seconds). Its output goes
+    to `log`. At the timeout its whole process group is killed (a
+    launcher's workers with it)."""
+    extra = dict(env or {})
+    paths = (extra.pop('PYTHONPATH', None),
+             os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, **extra,
+               PYTHONPATH=os.pathsep.join(p for p in paths if p))
     t0 = time.perf_counter()
     with open(log, 'w') as f:
-        try:
-            rc = subprocess.run([sys.executable, '-m', *cmd], cwd=cwd,
+        proc = subprocess.Popen([sys.executable, '-m', *cmd], cwd=cwd,
                                 env=env, stdout=f, stderr=subprocess.STDOUT,
-                                timeout=timeout).returncode
+                                start_new_session=True)
+        try:
+            rc = proc.wait(timeout)
         except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, 9)
+            proc.wait()
             rc = 124
     return rc, time.perf_counter() - t0
 
 
-def entry_phase(name, out_dir=None):
+def entry_phase(name, out_dir=None, keep_dir=None):
     """Train an experiment with `python -m srcaco2_tpu_torch.main` on a
     synthetic dataset (the port's make_synthetic_dataset, CELL0, 512^2
     HR, blobs, one channel, written with the port's own TIFF codec where
@@ -2891,7 +2977,11 @@ def entry_phase(name, out_dir=None):
     equal to the trainer's final test within 1e-6; the kernel launches
     of each phase from the run's run_stats.json (x8: 36 K1 and 36 K2 per
     step; x2: none in training, the windowed path; both: 36 K5 per
-    validation / test forward and no other kernel)."""
+    validation / test forward and no other kernel). With `ddp`, main
+    runs under torchrun with --distributed True (entry_ddp_nproc ranks,
+    NCCL), its processes' writes audited: only rank 0 writes in the
+    experiment tree. keep_dir: the final params (models/<step>_G.pt)
+    are copied there as <name>.pt."""
     import pickle
     import re
     import shutil
@@ -2909,15 +2999,27 @@ def entry_phase(name, out_dir=None):
             size=512, seed=0, style='blobs')
         data_s = time.perf_counter() - t0
         data = os.path.join(tmp, 'data')
-        rc_train, train_s = _run_entry(
-            ['srcaco2_tpu_torch.main', '--net_type', 'SwinIR', '--scale',
-             str(cfg['scale']), '--n_channels', '1',
-             '--train_dsets', names[0], '--valid_dsets', names[1],
-             '--test_dsets', names[2], '--data_root', data,
-             '--splits_root', data, *cfg['flags'],
-             '--max_epochs', str(cfg['epochs']),
-             '--checkpoint_eval', '1.0', '--checkpoint_save', '1.0'],
-            tmp, os.path.join(tmp, 'main.log'))
+        main_cmd = ['srcaco2_tpu_torch.main', '--net_type', 'SwinIR',
+                    '--scale', str(cfg['scale']), '--n_channels', '1',
+                    '--train_dsets', names[0], '--valid_dsets', names[1],
+                    '--test_dsets', names[2], '--data_root', data,
+                    '--splits_root', data, *cfg['flags'],
+                    '--max_epochs', str(cfg['epochs']),
+                    '--checkpoint_eval', '1.0', '--checkpoint_save', '1.0']
+        env, audit = None, os.path.join(tmp, 'audit')
+        if cfg.get('ddp'):
+            os.makedirs(audit)
+            with open(os.path.join(audit, 'sitecustomize.py'), 'w') as f:
+                f.write(AUDIT_SITE)
+            env = dict(PYTHONPATH=audit,
+                       SRCACO2_AUDIT_ROOT=os.path.join(tmp, 'exps'),
+                       SRCACO2_AUDIT_LOG=os.path.join(audit, 'writes_'))
+            main_cmd = ['torch.distributed.run', '--standalone',
+                        '--nproc_per_node', str(entry_ddp_nproc()), '-m',
+                        *main_cmd, '--distributed', 'True']
+        rc_train, train_s = _run_entry(main_cmd, tmp,
+                                       os.path.join(tmp, 'main.log'),
+                                       env=env)
         done = [os.path.join(d, 'passed.txt') for d, _, f in
                 os.walk(os.path.join(tmp, 'exps')) if 'passed.txt' in f]
         exp = os.path.dirname(done[0]) if done else None
@@ -2939,8 +3041,23 @@ def entry_phase(name, out_dir=None):
                 if os.path.isfile(f):
                     shutil.copy(f, dst)
         ok = rc_train == 0 and rc_eval == 0 and bool(done)
+        if ok and cfg.get('ddp'):
+            writes = {}
+            for f in sorted(os.listdir(audit)):
+                if f.startswith('writes_'):
+                    with open(os.path.join(audit, f)) as fh:
+                        writes[f[len('writes_'):-len('.txt')]] = \
+                            len(fh.read().splitlines())
+            rec.update(nproc=entry_ddp_nproc(), writes_by_process=writes)
+            rec['only_rank_0_wrote'] = writes.get('0', 0) > 0 and all(
+                v == 0 for k, v in writes.items() if k != '0')
+            ok = rec['only_rank_0_wrote']
         if ok:
             rec['last_checkpoint'] = CKPT.find_last_checkpoint(exp)
+            if keep_dir:
+                shutil.copy(os.path.join(
+                    exp, 'models', f"{rec['last_checkpoint']}_G.pt"),
+                    os.path.join(keep_dir, f'{name}.pt'))
             rec['best_model'] = os.path.isfile(
                 os.path.join(exp, 'best-models', 'G-model.pt'))
             with open(os.path.join(exp, 'tracker.pkl'), 'rb') as f:
@@ -3370,6 +3487,423 @@ def entry_zoo(dev, out_dir=None, nets=ZOO):
     return out, ok
 
 
+# ------------------------------------------------------- data parallelism
+# ddp_check: two ranks of the port's grid (parallel/mesh.py), over NCCL
+# with a card each where the machine has two cards, else as two
+# processes on card 0 over gloo (which all-reduces and broadcasts CUDA
+# tensors). The backend is an argument of this check's own call of
+# mesh.init_process_group; `main --distributed True` takes NCCL on the
+# card whatever the card count.
+DDP_WORLD = 2
+DDP_E_DECAY = 0.999
+# f32: only the order of the f32 sums differs (the weight grads' sums
+# over 128 patches against two sums over 64 and their all-reduce);
+# bf16: bf16_grads_held's tolerance and floor rule against the f32 steps.
+# MemNet is held to the larger of these and 3 x its own spread: its
+# one-process step on the same batch in reverse order (another order of
+# every sum) moves its grads by 4.5e-4 relative L2 and its running
+# statistics by 9.5e-7 (an NVIDIA H100 80GB HBM3 at 700 W; 1.9e-4 and
+# 1.4e-6 on the CPU): the BatchNorm backward's differences of
+# near-equal sums amplify f32 rounding, 21 BatchNorms deep
+# In bf16 the params and the EMA are held where the one-process f32
+# grad is above DDP_LIVE of its tensor's largest: Adam's first step
+# moves a param by +-lr whatever the size of its grad, so a grad within
+# bf16 noise of 0 lands on either side (one element of a zero-initialised
+# 1,080-element mlp2_bias made 5.9e-2 relative L2 on an NVIDIA H100
+# 80GB HBM3 at 700 W); the moments, unmasked, hold the grads
+DDP_TOL = {'f32': 1e-5, 'bf16': 3e-2, 'stats': 1e-6}
+DDP_LIVE = 1e-2
+DDP_MEMNET_B, DDP_STEPS, DDP_TIMEOUT_S = 8, 3, 600
+
+
+def _tree_rel_l2(a, b):
+    """Relative L2 distance of a from b over all their tensors."""
+    import torch
+    fa = torch.cat([a[k].double().reshape(-1) for k in sorted(b)])
+    fb = torch.cat([b[k].double().reshape(-1) for k in sorted(b)])
+    return float((fa - fb).norm() / fb.norm().clamp_min(1e-30))
+
+
+def _ddp_record(model, state, holder, ok):
+    """CPU copies of what a step leaves: params, Adam moments, EMA,
+    buffers, the holder and the ok flag."""
+    def cpu(t):
+        return {k: v.detach().float().cpu().clone() for k, v in t.items()}
+    adam = state.opt_state['adam']
+    return dict(params=cpu(state.params), mu=cpu(adam['mu']),
+                nu=cpu(adam['nu']), ema=cpu(state.ema_params or {}),
+                buffers=cpu(dict(model.named_buffers())),
+                holder={k: float(v) for k, v in holder.items()},
+                ok=bool(ok))
+
+
+def _ddp_flagship(dev, amp, grid, cfg):
+    """The x8 flagship (full depth and width, seeded weights, bf16 over
+    f32 params or f32), its state with an EMA, and its train step (one
+    rank's on `grid`)."""
+    from srcaco2_tpu_torch.losses.master import build_loss
+    from srcaco2_tpu_torch.models.registry import define_g
+    from srcaco2_tpu_torch.train.schedule import build_optimizer
+    from srcaco2_tpu_torch.train.state import TrainState
+    from srcaco2_tpu_torch.train.steps import make_train_step
+    targs, _ = train_config()
+    model = define_g({**flagship_args(), 'amp': amp}, dev, seed=0).train()
+    master, tx = build_loss(targs), build_optimizer(targs['train'])
+    state = TrainState.create(dict(model.named_parameters()), tx,
+                              DDP_E_DECAY)
+
+    def step_for(pipe):
+        return make_train_step(model, master, tx, 'SwinIR', pipe,
+                               e_decay=DDP_E_DECAY, steps_per_epoch=1000,
+                               grid=grid)
+    return model, state, step_for(cfg), step_for
+
+
+def _ddp_timing(dev, grid, state, step, hr, lr, cfg):
+    """This rank's ms per step over DDP_STEPS bf16 steps after a warm-up,
+    its kernel launches, peak memory, and the gradient all-reduce alone
+    (one flat f32 buffer of every grad): its ms and bytes."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(6)
+    inputs = [step_inputs(gen, cfg, TRAIN_B) for _ in range(DDP_STEPS + 1)]
+    state, _, _ = step(state, hr, lr, *inputs[0])
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    flags = torch.zeros((), device=dev)
+    for idxs, draws in inputs[1:]:
+        state, holder, _ = step(state, hr, lr, idxs, draws)
+        flags = flags + holder['_flags']
+    torch.cuda.synchronize(dev)
+    dt = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated(dev)
+    grads = {k: torch.ones_like(p) for k, p in state.params.items()}
+    grid.all_reduce_grads(grads)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for _ in range(10):
+        grid.all_reduce_grads(grads)
+    torch.cuda.synchronize(dev)
+    ar_ms = 1e3 * (time.perf_counter() - t0) / 10
+    return dict(ms_per_step=1e3 * dt / DDP_STEPS, steps=DDP_STEPS,
+                patches_per_s_global=TRAIN_B * DDP_STEPS / dt,
+                flags_sum=float(flags), launches=launches,
+                launches_per_step={k: v / DDP_STEPS
+                                   for k, v in launches.items()},
+                max_memory_allocated=peak, allreduce_ms=ar_ms,
+                allreduce_bytes=4 * sum(g.numel() for g in grads.values()))
+
+
+def _ddp_nan(dev, grid, state, step_for, hr, lr):
+    """One bf16 step whose batch has a NaN in rank 1's shard only (the
+    Gaussian-noise aug's field of its first sample): (skipped on this
+    rank, params kept)."""
+    import torch
+    from srcaco2_tpu_torch.data import pipeline as P
+    cfg = P.PipeConfig(scale=SCALE, h_size=H_SIZE, da_add_gaus_noise=True,
+                       da_add_gaus_noise_prob=1.0)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    idxs, draws = step_inputs(gen, cfg, TRAIN_B)
+    if grid.rank == 1:
+        field = draws.gaus.field.clone()
+        field[grid.rows(TRAIN_B).start] = float('nan')
+        draws = draws._replace(gaus=draws.gaus._replace(field=field))
+    before = {k: p.detach().clone() for k, p in state.params.items()}
+    state, holder, ok = step_for(cfg)(state, hr, lr, idxs, draws)
+    return dict(ok=bool(ok), skipped=float(holder['_skipped']),
+                params_kept=all(torch.equal(p, before[k])
+                                for k, p in state.params.items()))
+
+
+def _ddp_memnet(dev, grid, reverse=False):
+    """MemNet at zoo_check's cut depth (full width), f32, one step at
+    global batch DDP_MEMNET_B: its BatchNorms normalise with the global
+    batch's statistics and move their running ones alike. `reverse`:
+    the batch's samples in reverse order (the spread of the sums'
+    order)."""
+    import torch
+    from srcaco2_tpu_torch.data import pipeline as P
+    from srcaco2_tpu_torch.losses.master import build_loss
+    from srcaco2_tpu_torch.models.registry import define_g
+    from srcaco2_tpu_torch.train.schedule import build_optimizer
+    from srcaco2_tpu_torch.train.state import TrainState
+    from srcaco2_tpu_torch.train.steps import make_train_step
+    from srcaco2_tpu_torch.utils import reproducibility as R
+    args = zoo_check_args('MemNet', amp=False)
+    model = define_g(args, dev, seed=0).train()
+    tx = build_optimizer(args['train'])
+    state = TrainState.create(dict(model.named_parameters()), tx)
+    cfg = P.PipeConfig(scale=SCALE, h_size=H_SIZE)
+    step = make_train_step(model, build_loss(args), tx, 'MemNet', cfg,
+                           steps_per_epoch=1000, netG=args['netG'],
+                           grid=grid)
+    b = DDP_MEMNET_B
+    gen = torch.Generator(device=dev).manual_seed(7)
+    hr = torch.randint(0, 256, (b, H_SIZE, H_SIZE, 1), generator=gen,
+                       device=dev, dtype=torch.uint8)
+    lr = torch.randint(0, 256, (b, PATCH, PATCH, 1), generator=gen,
+                       device=dev, dtype=torch.uint8)
+    draws = P.draw(R.step_generator(7, 0, dev), b, cfg, (H_SIZE, H_SIZE))
+    idxs = torch.arange(b, device=dev)
+    if reverse:
+        from srcaco2_tpu_torch.parallel import mesh
+        idxs = idxs.flip(0)
+        draws = mesh.shard_draws(draws, idxs)
+    before = {k: v.clone() for k, v in model.named_buffers()}
+    state, holder, ok = step(state, hr, lr, idxs, draws)
+    rec = _ddp_record(model, state, holder, ok)
+    rec['buffers_moved'] = sum(not torch.equal(v, before[k])
+                               for k, v in model.named_buffers())
+    return rec
+
+
+def _ddp_run(dev, grid=None):
+    """The steps ddp_check holds: the flagship's f32 and bf16 steps at
+    global batch TRAIN_B from the seeded weights on the same draws, and
+    MemNet's f32 step; in one process (grid None) or as one rank (then
+    also the bf16 timing and the NaN step)."""
+    import torch
+    hr, lr, _ = train_data(dev)
+    _, cfg = train_config()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    idxs, draws = step_inputs(gen, cfg, TRAIN_B)
+    rec = {}
+    for name, amp in (('f32', False), ('bf16', True)):
+        model, state, step, step_for = _ddp_flagship(dev, amp, grid, cfg)
+        state, holder, ok = step(state, hr, lr, idxs, draws)
+        rec[name] = _ddp_record(model, state, holder, ok)
+        if grid is not None and amp:
+            rec['timing'] = _ddp_timing(dev, grid, state, step, hr, lr, cfg)
+            rec['nan'] = _ddp_nan(dev, grid, state, step_for, hr, lr)
+        del model, state, step, step_for
+        torch.cuda.empty_cache()
+    rec['memnet'] = _ddp_memnet(dev, grid)
+    if grid is None:
+        rec['memnet_reversed'] = _ddp_memnet(dev, None, reverse=True)
+    return rec
+
+
+def _ddp_world1(dev):
+    """The DP layer's own cost: the bf16 flagship step at batch TRAIN_B
+    in this process with a world-of-one NCCL grid against no grid, in
+    turns (none, grid, grid, none); ms per step over DDP_STEPS after a
+    warm-up, each."""
+    import torch
+    from srcaco2_tpu_torch.parallel import mesh
+    _, cfg = train_config()
+    hr, lr, _ = train_data(dev)
+    mesh.init_process_group('nccl', 0, 1, '', DDP_TIMEOUT_S, dev)
+    out = {'none': [], 'grid': []}
+    try:
+        grid = mesh.make_mesh(data=1)
+        for name in ('none', 'grid', 'grid', 'none'):
+            _, state, step, _ = _ddp_flagship(
+                dev, True, grid if name == 'grid' else None, cfg)
+            gen = torch.Generator(device=dev).manual_seed(6)
+            inputs = [step_inputs(gen, cfg, TRAIN_B)
+                      for _ in range(DDP_STEPS + 1)]
+            state, _, _ = step(state, hr, lr, *inputs[0])
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            for idxs, draws in inputs[1:]:
+                state, _, _ = step(state, hr, lr, idxs, draws)
+            torch.cuda.synchronize(dev)
+            out[name].append(1e3 * (time.perf_counter() - t0) / DDP_STEPS)
+            del state, step
+            torch.cuda.empty_cache()
+    finally:
+        mesh.destroy_process_group(dev)
+    return out
+
+
+@contextlib.contextmanager
+def _true_f32():
+    """TF32 off and cuDNN's deterministic algorithms (the entry points'
+    settings, train/trainer.py), restored after."""
+    import torch
+    b = torch.backends
+    old = (b.cuda.matmul.allow_tf32, b.cudnn.allow_tf32,
+           b.cudnn.deterministic)
+    b.cuda.matmul.allow_tf32 = b.cudnn.allow_tf32 = False
+    b.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        (b.cuda.matmul.allow_tf32, b.cudnn.allow_tf32,
+         b.cudnn.deterministic) = old
+
+
+def _ddp_rank(rank, world, backend, init, out):
+    """One rank of ddp_check (a spawned process): its card (its own with
+    NCCL, card 0 with gloo), the process group, _ddp_run on the grid;
+    its record to out.<rank>."""
+    import torch
+    from srcaco2_tpu_torch.parallel import mesh
+    try:
+        dev = torch.device('cuda', rank if backend == 'nccl' else 0)
+        torch.cuda.set_device(dev)
+        mesh.init_process_group(backend, rank, world, init, DDP_TIMEOUT_S,
+                                dev)
+        with _true_f32():
+            rec = _ddp_run(dev, mesh.make_mesh(data=world))
+        rec['device'] = str(dev)
+        torch.save(rec, f'{out}.{rank}')
+        mesh.destroy_process_group(dev)
+    except BaseException:
+        import traceback
+        traceback.print_exc()
+        sys.stderr.flush()
+        os._exit(1)
+
+
+def ddp_check(dev):
+    """The data-parallel step of the port on DDP_WORLD ranks against the
+    one-process step over the same global batch and draws (this
+    process): the flagship (K1 + K2) at batch TRAIN_B in f32 (params,
+    Adam moments and EMA within DDP_TOL['f32'] relative L2) and bf16
+    (each tensor by bf16_grads_held against the f32 steps), 36 K1 and 36
+    K2 launches per step on each rank, MemNet's running statistics
+    within DDP_TOL['stats'], a NaN in one rank's shard skipped on both;
+    both ranks' params bit-equal. Also the cost of the DP layer alone
+    (_ddp_world1). (record, ok)."""
+    import multiprocessing as mp
+    import tempfile
+    import torch
+    backend = 'nccl' if torch.cuda.device_count() >= DDP_WORLD else 'gloo'
+    t0 = time.perf_counter()
+    with _true_f32():
+        one = _ddp_run(dev)
+    one_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    ctx = mp.get_context('spawn')
+    with tempfile.TemporaryDirectory(prefix='ddp_check_') as tmp:
+        out = os.path.join(tmp, 'rank')
+        procs = [ctx.Process(target=_ddp_rank, args=(
+            r, DDP_WORLD, backend, f'file://{tmp}/store', out))
+            for r in range(DDP_WORLD)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(max(1.0, t0 + DDP_TIMEOUT_S - time.perf_counter()))
+        codes = []
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+            codes.append(p.exitcode)
+        ranks_s = time.perf_counter() - t0
+        recs = [torch.load(f'{out}.{r}', weights_only=False)
+                if os.path.isfile(f'{out}.{r}') else None
+                for r in range(DDP_WORLD)]
+    rec = dict(world=DDP_WORLD, backend=backend,
+               cards=torch.cuda.device_count(), exit_codes=codes,
+               one_process_seconds=one_s, ranks_seconds=ranks_s)
+    if any(c != 0 for c in codes) or any(r is None for r in recs):
+        return rec, False
+    with _true_f32():
+        rec['world1_ms_per_step'] = _ddp_world1(dev)
+    return ddp_compare(rec, one, recs)
+
+
+def ddp_compare(rec, one, recs):
+    """ddp_check's gates over the one-process record and the ranks'."""
+    import torch
+    r0, r1 = recs
+    checks, ok = {}, True
+    g32 = one['f32']['mu']
+    live = {k: g.abs() > DDP_LIVE * g.abs().max() for k, g in g32.items()}
+    for part in ('params', 'mu', 'nu', 'ema'):
+        e32 = _tree_rel_l2(r0['f32'][part], one['f32'][part])
+        pick = (lambda t: {k: v[live[k]] for k, v in t.items()}) \
+            if part in ('params', 'ema') else (lambda t: t)
+        held, rel, floored = bf16_grads_held(
+            pick(r0['bf16'][part]), pick(one['bf16'][part]),
+            pick(r0['f32'][part]), pick(one['f32'][part]),
+            tol=DDP_TOL['bf16'])
+        checks[part] = dict(f32_rel_l2=e32, bf16_max_rel_l2=max(rel.values()),
+                            bf16_floored=floored, bf16_held=held)
+        ok = ok and e32 <= DDP_TOL['f32'] and held
+    checks['bf16_live_share'] = float(sum(m.sum() for m in live.values())
+                                      / sum(m.numel() for m in live.values()))
+    ranks_equal = all(torch.equal(r0[n]['params'][k], r1[n]['params'][k])
+                      for n in ('f32', 'bf16', 'memnet')
+                      for k in r0[n]['params'])
+    loss = {n: dict(ranks=r0[n]['holder']['total'],
+                    one=one[n]['holder']['total']) for n in ('f32', 'bf16')}
+    loss_ok = abs(loss['f32']['ranks'] - loss['f32']['one']) <= \
+        DDP_TOL['f32'] * abs(loss['f32']['one'])
+    mem, mem1, rev = r0['memnet'], one['memnet'], one['memnet_reversed']
+
+    def stats_err(a):
+        return max(float((a['buffers'][k] - mem1['buffers'][k]).abs().max())
+                   for k in mem1['buffers'])
+    memnet = dict(buffers=len(mem1['buffers']),
+                  buffers_moved=mem['buffers_moved'],
+                  ok=mem['ok'] and mem1['ok'] and rev['ok'])
+    memnet_ok = memnet['ok'] and mem['buffers_moved'] == len(
+        mem1['buffers']) > 0
+    for part, err, tol in (
+            ('params', _tree_rel_l2, DDP_TOL['f32']),
+            ('mu', _tree_rel_l2, DDP_TOL['f32']),
+            ('stats', None, DDP_TOL['stats'])):
+        if part == 'stats':
+            got, spread = stats_err(mem), stats_err(rev)
+        else:
+            got = err(mem[part], mem1[part])
+            spread = err(rev[part], mem1[part])
+        memnet[part] = dict(ranks=got, reversed_order=spread,
+                            bound=max(tol, 3 * spread))
+        memnet_ok = memnet_ok and got <= memnet[part]['bound']
+    timing = [r['timing'] for r in recs]
+    launches_ok = all(
+        t['launches_per_step']['fwd'] == 36
+        and t['launches_per_step']['bwd'] == 36 and t['flags_sum'] == 0
+        and all(t['launches'][k] == 0 for k in t['launches']
+                if k not in ('fwd', 'bwd')) for t in timing)
+    nan = [r['nan'] for r in recs]
+    nan_ok = all(not n['ok'] and n['skipped'] == 1.0 and n['params_kept']
+                 for n in nan)
+    steps_ok = all(r[n]['ok'] for r in (r0, r1, one)
+                   for n in ('f32', 'bf16'))
+    rec.update(devices=[r['device'] for r in recs], checks=checks,
+               loss=loss, memnet=memnet, ranks_params_equal=ranks_equal,
+               nan=nan, timing=timing,
+               ms_per_step=[t['ms_per_step'] for t in timing],
+               allreduce_ms=[t['allreduce_ms'] for t in timing],
+               allreduce_bytes=timing[0]['allreduce_bytes'],
+               max_memory_allocated=[t['max_memory_allocated']
+                                     for t in timing],
+               tol=DDP_TOL)
+    rec['gates'] = dict(state=ok, ranks_equal=ranks_equal, loss=loss_ok,
+                        memnet=memnet_ok, launches=launches_ok, nan=nan_ok,
+                        steps_ok=steps_ok)
+    return rec, all(rec['gates'].values())
+
+
+def entry_ddp_vs_x8(keep):
+    """entry_ddp's final params against entry_x8's (the same run in one
+    process): bit for bit on one card (a world of one: the all-reduces
+    of one rank change no bit), else within DDP_TOL['bf16'] relative L2
+    of their change from the seeded weights (both bf16)."""
+    import torch
+    from srcaco2_tpu_torch.models.registry import define_g
+    a = torch.load(os.path.join(keep, 'entry_ddp.pt'), weights_only=True)
+    b = torch.load(os.path.join(keep, 'entry_x8.pt'), weights_only=True)
+    rec = dict(params_rel_l2=_tree_rel_l2(a, b),
+               params_bit_equal=all(torch.equal(a[k], b[k]) for k in b))
+    if entry_ddp_nproc() == 1:
+        rec['params_ok'] = rec['params_bit_equal']
+    else:
+        init = define_g(flagship_args(), 'cpu', seed=0).state_dict()
+        rec['change_rel_l2'] = _tree_rel_l2(
+            {k: a[k] - init[k] for k in b}, {k: b[k] - init[k] for k in b})
+        rec['params_ok'] = rec['change_rel_l2'] <= DDP_TOL['bf16']
+    return rec
+
+
 def flagship_args():
     from srcaco2_tpu_torch.config.net_defaults import init_net_g
     args = {'scale': SCALE, 'n_channels': 1, 'h_size': H_SIZE, 'amp': True}
@@ -3641,17 +4175,35 @@ def main() -> int:
         print('chip_smoke: options_check failed', file=sys.stderr)
         return 1
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ddp, ok = ddp_check(dev)
+    ddp = emit('ddp_check', **ddp, phase_seconds=time.perf_counter() - t0,
+               nvidia_smi=smi)
+    if not ok:
+        print('chip_smoke: ddp_check failed', file=sys.stderr)
+        return 1
+    torch.cuda.empty_cache()
     # the entry runs are processes of their own, each far from the
     # card's memory (5.6 GB reserved at x8, 17.7 at x2, on an NVIDIA H100
     # 80GB HBM3 at 700 W), so they run at the same time
+    import shutil
+    import tempfile
     from concurrent.futures import ThreadPoolExecutor
-    with ThreadPoolExecutor(len(ENTRY)) as pool:
-        runs = {name: pool.submit(entry_phase, name, out_dir)
-                for name in ENTRY}
-        runs = {name: f.result() for name, f in runs.items()}
+    keep = tempfile.mkdtemp(prefix='entry_params_')
+    try:
+        with ThreadPoolExecutor(len(ENTRY)) as pool:
+            runs = {name: pool.submit(entry_phase, name, out_dir, keep)
+                    for name in ENTRY}
+            runs = {name: f.result() for name, f in runs.items()}
+        if all(ok for _, ok in runs.values()):
+            runs['entry_ddp'][0].update(entry_ddp_vs_x8(keep))
+            runs['entry_ddp'] = (runs['entry_ddp'][0],
+                                 runs['entry_ddp'][0]['params_ok'])
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
     entries = {}
-    for name, (rec, ok) in runs.items():
-        entries[name] = emit(name, **rec, nvidia_smi=smi)
+    for name, (erec, ok) in runs.items():
+        entries[name] = emit(name, **erec, nvidia_smi=smi)
         if not ok:
             print(f'chip_smoke: {name} failed', file=sys.stderr)
             return 1
@@ -3759,6 +4311,7 @@ def main() -> int:
                        'eval_unfused': ev, 'eval_unfused_profile': ev_prof,
                        'windowed_check': windowed,
                        'windowed_profile': wprof, 'options_check': opts,
+                       'ddp_check': ddp,
                        **entries, **zoo,
                        'kernels': kernels}, f, indent=1)
     print(json.dumps({'kernels': kernels}))

@@ -105,9 +105,10 @@ def get_config(net_type: str = constants.SWINIR) -> dict:
             # between them (train/steps.py); the trainer chunks so eval,
             # save and epoch boundaries never fall inside a call.
             "train_steps_per_call": 8,
-            # JAX times K against K=1 under a mesh at start-up; the port
-            # runs on one card and has no mesh yet (ROADMAP.md), so the
-            # probe never runs.
+            # with --distributed True, time K against K=1 at start-up on
+            # copies of the state and keep K unless K=1 is faster by
+            # more than 5% (train/trainer.py:_probe_superstep), as JAX
+            # does under a mesh.
             "train_superstep_probe": True,
         },
         # --------------------------------------------------- evaluation
@@ -189,13 +190,20 @@ def get_config(net_type: str = constants.SWINIR) -> dict:
         "amp": False,
         "amp_eval": False,
         # ------------------------------------------------------ processes
-        # the JAX package's mesh keys, kept for its flag surface: the
-        # port is single-process, and distributed True raises
-        # (config/parser.py).
+        # data parallelism (parallel/mesh.py): distributed True runs one
+        # process per card under torchrun (or SLURM's variables), over
+        # NCCL on the card and gloo on the CPU; a data x model grid of
+        # the ranks whose product must be the world size. mesh_data -1 =
+        # world_size // mesh_model.
         "dist_backend": constants.BACKEND_ICI,
         "distributed": False,
         "mesh_data": -1,
         "mesh_model": 1,
+        # the port's own process-group keys: the rendezvous
+        # ('' = env://, torchrun's MASTER_ADDR / MASTER_PORT; or
+        # file:///path, tcp://host:port) and the collectives' timeout
+        "init_method": '',
+        "dist_timeout_s": 1800,
         "rank": 0,
         "world_size": 1,
         "is_master": True,

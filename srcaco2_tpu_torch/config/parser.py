@@ -3,11 +3,16 @@ srcaco2_tpu/config/parser.py).
 
 The same flag surface: one flag per config key (nested `netG` / `train`
 keys included), generated from the config dict and overlaid back into
-it; the reference CLI's CUDA / DDP flags are accepted and ignored.
-Lists given on the command line (`--swinir_depths "[2, 2]"`,
-`--G_scheduler_milestones "[100, 200]"`) parse without PyYAML
-(config/yaml_io.parse_value). The process set-up is single-process:
-`--distributed True` raises (multi-GPU is not ported yet, ROADMAP.md).
+it; the reference CLI's CUDA / DDP flags are accepted and ignored, but
+for --init_method, the process group's rendezvous. Lists given on the
+command line (`--swinir_depths "[2, 2]"`, `--G_scheduler_milestones
+"[100, 200]"`) parse without PyYAML (config/yaml_io.parse_value).
+
+The process set-up: one process, or with `--distributed True` one
+process per card under torchrun (RANK, WORLD_SIZE, LOCAL_RANK; or
+SLURM's SLURM_PROCID, SLURM_NTASKS, SLURM_LOCALID), over NCCL on the
+card and gloo on the CPU (parallel/mesh.py). Each rank runs on
+cuda:LOCAL_RANK. Only the master writes the experiment directory.
 """
 import argparse
 import datetime as dt
@@ -15,10 +20,13 @@ import os
 import sys
 from typing import Any, Dict, Optional
 
-from srcaco2_tpu_torch import constants
+import torch
+
+from srcaco2_tpu_torch import constants, resolve_device
 from srcaco2_tpu_torch.config import yaml_io
 from srcaco2_tpu_torch.config.defaults import get_config
 from srcaco2_tpu_torch.config.net_defaults import NET_OPTIONS, safe_str_var
+from srcaco2_tpu_torch.parallel import mesh
 
 
 def _str2bool(v) -> bool:
@@ -72,7 +80,7 @@ def _add_flag(parser: argparse.ArgumentParser, name: str, default: Any):
 # reference-CLI compatibility: CUDA/DDP flags accepted and ignored so
 # commands copied from the reference README run unchanged.
 _IGNORED_COMPAT_FLAGS = ['cudaid', 'num_gpus', 'local_rank',
-                         'local_world_size', 'init_method', 'c_cudaid']
+                         'local_world_size', 'c_cudaid']
 
 
 def build_parser(config: dict) -> argparse.ArgumentParser:
@@ -175,16 +183,9 @@ def _sanity(config: dict):
         _check(ok, f'{key}={v}')
     if config['ssim']:
         _check(config['ssim_window_s'] % 2 == 1, config['ssim_window_s'])
-    todo = []
     if config['task'] == constants.RECONSTRUCT:
-        todo.append('the reconstruct task')
-    if config['distributed']:
-        todo.append('distributed (multi-GPU) training')
-    if config['scratch_root']:
-        todo.append('the cluster scratch sync (scratch_root)')
-    if todo:
         raise NotImplementedError(
-            f'{", ".join(todo)}: not ported yet (see ROADMAP.md)')
+            'the reconstruct task: not ported yet (see ROADMAP.md)')
 
 
 def outfd(config: dict, root: Optional[str] = None) -> str:
@@ -211,12 +212,38 @@ def outfd(config: dict, root: Optional[str] = None) -> str:
 
 
 def _setup_process(config: dict) -> dict:
-    """Single-process set-up: rank 0 of 1, master. The JAX package also
-    sizes its device mesh here; the port runs on one device."""
-    config['rank'] = 0
-    config['world_size'] = 1
-    config['is_master'] = True
-    config['is_node_master'] = True
+    """The process's place in the job: rank, world_size, is_master (rank
+    0), is_node_master (local rank 0) and mesh_data (-1 resolved to
+    world_size // mesh_model, as JAX does). With `distributed` the
+    world comes from the launcher (parallel/mesh.launcher_world: a
+    world of one without one), the rank takes cuda:LOCAL_RANK (the
+    config's `device` becomes it) and joins the process group: NCCL on
+    the card, gloo on the CPU, the config's init_method and
+    dist_timeout_s. A failing NCCL raises; nothing falls back to gloo or
+    the CPU."""
+    rank, world, local = 0, 1, 0
+    if config['distributed']:
+        rank, world, local = mesh.launcher_world()
+        dev = resolve_device(config.get('device'))
+        if dev.type == 'cuda':
+            if local >= torch.cuda.device_count():
+                raise RuntimeError(
+                    f'local rank {local} but {torch.cuda.device_count()} '
+                    f'visible cards')
+            torch.cuda.set_device(local)
+            dev = torch.device('cuda', local)
+            config['device'] = str(dev)
+        if not mesh.is_initialized():
+            mesh.init_process_group(
+                'nccl' if dev.type == 'cuda' else 'gloo', rank, world,
+                config.get('init_method', ''),
+                config.get('dist_timeout_s', 1800), dev)
+    config['rank'] = rank
+    config['world_size'] = world
+    config['is_master'] = rank == 0
+    config['is_node_master'] = local == 0
+    if config['mesh_data'] == -1:
+        config['mesh_data'] = max(1, world // max(1, config['mesh_model']))
     return config
 
 
@@ -238,21 +265,23 @@ def get_args(argv=None, net_type: Optional[str] = None) -> dict:
 
 def parse_input(argv=None, eval_mode: bool = False) -> dict:
     """Parse, set up the process, create the exp dir, write config.yml
-    and cmd.sh, start the logger; the resolved config. Exits 0 when the
-    experiment's `passed.txt` exists (it is done). The JAX package also
+    and cmd.sh (the master), start the logger; the resolved config.
+    Every rank exits 0 when the experiment's `passed.txt` exists (it is
+    done), before it joins the process group. The JAX package also
     returns an attribute view of the dict, which nothing here reads."""
-    config = _setup_process(get_args(argv))
+    config = get_args(argv)
     fd = outfd(config)
     config['fd_exp'] = fd
     config['abs_fd_exp'] = os.path.abspath(os.path.join(os.getcwd(), fd))
     config['t0'] = dt.datetime.now().isoformat()
+    sentinel = os.path.join(config['abs_fd_exp'], 'passed.txt')
+    if not eval_mode and os.path.isfile(sentinel):
+        print(f'Experiment already completed ({sentinel}); exiting.')
+        sys.exit(0)
+    config = _setup_process(config)
 
-    if not eval_mode:
+    if config['is_master'] and not eval_mode:
         os.makedirs(config['abs_fd_exp'], exist_ok=True)
-        sentinel = os.path.join(config['abs_fd_exp'], 'passed.txt')
-        if os.path.isfile(sentinel):
-            print(f'Experiment already completed ({sentinel}); exiting.')
-            sys.exit(0)
         yaml_io.dump(config, os.path.join(config['abs_fd_exp'],
                                           'config.yml'))
         with open(os.path.join(config['abs_fd_exp'], 'cmd.sh'), 'w') as f:
@@ -262,6 +291,6 @@ def parse_input(argv=None, eval_mode: bool = False) -> dict:
                     + '\n')
 
     from srcaco2_tpu_torch.utils.logger import DLLogger
-    DLLogger.init(outdir=config['abs_fd_exp'], is_master=True,
-                  verbose=config['verbose'])
+    DLLogger.init(outdir=config['abs_fd_exp'],
+                  is_master=config['is_master'], verbose=config['verbose'])
     return config

@@ -143,5 +143,13 @@ BEST_MTR = {PSNR_MTR: max, SSIM_MTR: max, MSE_MTR: min, NRMSE_MTR: min,
 # ROI thresholds the ROI metrics are marginalized over
 ROI_THRESH = [4, 5, 6, 7, 8, 9, 10]
 
-# the JAX package's process-setup names, kept for its flag surface
-BACKEND_ICI = 'ici'
+# the process set-up (config/parser.py:_setup_process, parallel/mesh.py):
+# `dist_backend` says whether the job spans one node ('ici') or several
+# ('dcn'), as in the JAX package; neither picks the torch backend, which
+# is NCCL on the card and gloo on the CPU
+BACKEND_ICI = 'ici'          # one node
+BACKEND_MULTIHOST = 'dcn'    # several nodes
+BACKENDS = [BACKEND_ICI, BACKEND_MULTIHOST]
+
+DATA_AXIS = 'data'           # the grid's data-parallel axis
+MODEL_AXIS = 'model'         # its replica axis (ranks of one data shard)

@@ -10,6 +10,14 @@ charbonnier, boundpred (ELB), local_moments, the derivative terms
 (CSR-CNN's segmentation loss) and w_sparsity (the sum of |w| over the
 params: the nn.Parameters, as JAX's param tree, never the buffers).
 
+Under data parallelism each rank computes the terms over its shard of
+the batch and the step averages them over the shards (parallel/mesh.py).
+Every term is a mean over samples of equal-sized shards, so the average
+is the global value, but for l2sum, a sum over the batch: `sum_scale`
+(the number of data shards) scales it so that its average is the global
+sum. The ELB, hist and kde terms are means over per-sample rows;
+w_sparsity reads only the parameters, equal on every rank.
+
 Two behaviours of the JAX terms are kept: a norm_ term's vector norm
 has a NaN gradient wherever a whole derivative vector of the prediction
 is zero (jnp.linalg.norm's, so the step is skipped), and the
@@ -51,6 +59,7 @@ class MasterLoss:
     elb_init_t: float = 1.0
     elb_max_t: float = 10.0
     elb_mulcoef: float = 1.01
+    sum_scale: float = 1.0     # the data shards (l2sum's scale)
 
     @property
     def names(self) -> List[str]:
@@ -66,6 +75,7 @@ class MasterLoss:
             'weights': batch.get('h_per_pixel_weight'),
             'outputs': outputs,
             'batch': batch,
+            'sum_scale': self.sum_scale,
         }
         total = torch.zeros((), dtype=torch.float32, device=pred.device)
         holder = {}
@@ -102,7 +112,8 @@ def _l2(p, y, ctx):
 
 
 def _l2sum(p, y, ctx):
-    return ((p - y) ** 2).sum()
+    s = ((p - y) ** 2).sum()
+    return s if ctx['sum_scale'] == 1 else ctx['sum_scale'] * s
 
 
 def _charbonnier(eps):

@@ -356,16 +356,32 @@ class _BatchNormTrain(torch.autograd.Function):
     of that function in the backward, from the input and the per-channel
     mean and rsqrt only. Autograd over the forward's own ops would keep
     four f32 copies of every normalised map for the backward (51 GB for
-    MemNet's step at batch 64 with its passes checkpointed)."""
+    MemNet's step at batch 64 with its passes checkpointed).
+
+    `reduce` (a sum over the ranks, parallel/mesh.py) makes the batch the
+    global one, as flax's BatchNorm under the JAX mesh: the forward sums
+    x, x^2 and the count over the ranks; the backward sums dbias and
+    dweight for dx, and returns this rank's own dweight and dbias, which
+    the step's gradient all-reduce averages like every other grad."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, eps, out_dtype):
+    def forward(ctx, x, weight, bias, eps, out_dtype, reduce=None):
         xs = x.to(stat_dtype(x.dtype))
-        mean = xs.mean(dim=(0, 2, 3))
-        var = torch.clamp((xs * xs).mean(dim=(0, 2, 3)) - mean * mean,
-                          min=0.0)
+        if reduce is None:
+            mean = xs.mean(dim=(0, 2, 3))
+            sq = (xs * xs).mean(dim=(0, 2, 3))
+            n = x.numel() // x.shape[1]
+        else:
+            c = x.shape[1]
+            sums = reduce(torch.cat([
+                xs.sum(dim=(0, 2, 3)), (xs * xs).sum(dim=(0, 2, 3)),
+                xs.new_full((1,), x.numel() // c)]))
+            n = sums[-1]
+            mean, sq = sums[:c] / n, sums[c:2 * c] / n
+        var = torch.clamp(sq - mean * mean, min=0.0)
         y = _bn_normalize(xs, mean, var, weight, bias, eps)
         ctx.save_for_backward(x, weight, mean, torch.rsqrt(var + eps))
+        ctx.n, ctx.reduce = n, reduce
         ctx.mark_non_differentiable(mean, var)
         return y.to(out_dtype), mean, var
 
@@ -375,13 +391,16 @@ class _BatchNormTrain(torch.autograd.Function):
         sd = stat_dtype(x.dtype)
         g = gy.to(sd)
         xhat = (x.to(sd) - mean[:, None, None]) * rstd[:, None, None]
-        n = x.numel() // x.shape[1]
+        n = ctx.n
         dbias = g.sum(dim=(0, 2, 3))
         dweight = (g * xhat).sum(dim=(0, 2, 3))
+        sb, sw = dbias, dweight
+        if ctx.reduce is not None:
+            sb, sw = ctx.reduce(torch.cat([dbias, dweight])).chunk(2)
         dx = (weight.to(sd) * rstd)[:, None, None] * (
-            g - (dbias / n)[:, None, None]
-            - xhat * (dweight / n)[:, None, None])
-        return dx.to(x.dtype), dweight, dbias, None, None
+            g - (sb / n)[:, None, None]
+            - xhat * (sw / n)[:, None, None])
+        return dx.to(x.dtype), dweight, dbias, None, None, None
 
 
 class BatchNorm(nn.Module):
@@ -414,6 +433,9 @@ class BatchNorm(nn.Module):
         super().__init__()
         self.eps, self.dtype = eps, dtype
         self.update_stats = True
+        # a sum over the ranks for the global batch statistics
+        # (parallel/mesh.py:sync_batch_norm), or None
+        self.reduce = None
         self.weight = nn.Parameter(torch.ones(features, device=device))
         self.bias = nn.Parameter(torch.zeros(features, device=device))
         self.register_buffer('mean', torch.zeros(features, device=device))
@@ -434,7 +456,8 @@ class BatchNorm(nn.Module):
                                  self.var.to(sd), self.weight, self.bias,
                                  self.eps).to(self.dtype)
         y, mean, var = _BatchNormTrain.apply(x, self.weight, self.bias,
-                                             self.eps, self.dtype)
+                                             self.eps, self.dtype,
+                                             self.reduce)
         if self.update_stats:
             m = self.MOMENTUM
             with torch.no_grad():

@@ -8,8 +8,14 @@ uint8-rounded [0, 255] NCHW predictions and targets. `fast_eval` runs a
 split in fixed-size batches (the last one padded), stops on a
 non-finite output or a non-finite or negative metric, and returns the
 means and the per-image details; it can dump the first predictions as
-PNG. The multi-process gather of the JAX package waits for multi-GPU
-(ROADMAP.md).
+PNG.
+
+Under data parallelism (a `grid`, parallel/mesh.py) rank r takes batches
+r, r + world, ... and the per-image metrics are summed over the ranks in
+a dense (images, metrics) float64 matrix, zeros off the rank, with a
+failure flag: every rank then holds the one-process means and details
+(the same sums: x + 0 is exact), or every rank raises. Only the master
+writes images, from its own batches.
 """
 import functools
 import os
@@ -58,11 +64,12 @@ def fast_eval(forward: Callable, params, ds: SRDataset, args,
               save_img_dir: Optional[str] = None,
               nbr_to_plot: int = 30,
               current_step: int = 0,
-              track_evolution_img: bool = False) -> Dict:
+              track_evolution_img: bool = False, grid=None) -> Dict:
     """Evaluate one dataset split. Returns
     {'full': {metric: mean}, 'roi': {...}, 'details': {id: {...}},
     'roi_details': {...}, 'n': N, 'time': s}. The split is staged on
-    args['device'] if it is not yet."""
+    args['device'] if it is not yet. With a grid (world > 1) the ranks
+    share the batches and gather the results."""
     t0 = time.perf_counter()
     n = len(ds)
     border = int(args['scale'])
@@ -78,12 +85,16 @@ def fast_eval(forward: Callable, params, ds: SRDataset, args,
     # logged warning; a non-finite one stops the run everywhere.
     fast_sweep = os.environ.get('SRCACO2_FAST_SWEEP') == '1'
 
-    sums = {'full': {m: 0.0 for m in EVAL_METRICS}}
-    if over_roi:
-        sums['roi'] = {m: 0.0 for m in EVAL_METRICS}
-    details, roi_details = {}, {}
+    scopes = ['full'] + (['roi'] if over_roi else [])
+    # per image and scope, the metrics in EVAL_METRICS order (zeros for
+    # the images of other ranks)
+    mat = np.zeros((n, len(scopes), len(EVAL_METRICS)), np.float64)
+    world = grid.world if grid is not None else 1
+    rank = grid.rank if grid is not None else 0
+    save = save_img_dir and bool(args.get('is_master', True))
     n_plotted = 0
-    for start in range(0, n, eval_bsize):
+    failure = None
+    for start in list(range(0, n, eval_bsize))[rank::world]:
         idx = np.arange(start, min(start + eval_bsize, n))
         pad = eval_bsize - len(idx)
         idx_p = np.concatenate([idx, np.repeat(idx[-1:], pad)]) \
@@ -94,35 +105,18 @@ def fast_eval(forward: Callable, params, ds: SRDataset, args,
         if not bool(torch.isfinite(e_img).all()):
             DLLogger.log(f'CORRUPTED model output in eval ({ds.name}); '
                          f'aborting.')
-            raise FloatingPointError('non-finite eval output')
+            failure = FloatingPointError('non-finite eval output')
+            break
         res = metric_fn(e_img, M.uint8_round(batch['h_im']))
         res = {scope: {m: v.double().cpu().numpy() for m, v in r.items()}
                for scope, r in res.items()}
-        for scope in res:
-            for m, v in res[scope].items():
-                vv = v[:len(idx)]
-                if not np.all(np.isfinite(vv)):
-                    DLLogger.log(f'CORRUPTED metric {scope}/{m} in '
-                                 f'{ds.name}: {vv}')
-                    raise FloatingPointError(
-                        f'non-finite metric {scope}/{m}')
-                if np.any(vv < 0):
-                    DLLogger.log(f'CORRUPTED metric {scope}/{m} in '
-                                 f'{ds.name}: {vv}')
-                    if not fast_sweep:
-                        raise FloatingPointError(
-                            f'non-finite/negative metric {scope}/{m}')
-        for scope in sums:
-            for m in EVAL_METRICS:
-                sums[scope][m] += float(res[scope][m][:len(idx)].sum())
-        for j, gi in enumerate(idx):
-            img_id = ds.ids[gi]
-            details[img_id] = {m: float(res['full'][m][j])
-                               for m in EVAL_METRICS}
-            if over_roi:
-                roi_details[img_id] = {m: float(res['roi'][m][j])
-                                       for m in EVAL_METRICS}
-        if save_img_dir and n_plotted < nbr_to_plot:
+        failure = _check_metrics(res, len(idx), ds.name, fast_sweep)
+        if failure is not None:
+            break
+        for si, scope in enumerate(scopes):
+            for mi, m in enumerate(EVAL_METRICS):
+                mat[idx, si, mi] = res[scope][m][:len(idx)]
+        if save and n_plotted < nbr_to_plot:
             from srcaco2_tpu_torch.data.io import imsave
             e_np = e_img.cpu().numpy()
             for j, gi in enumerate(idx):
@@ -137,13 +131,47 @@ def fast_eval(forward: Callable, params, ds: SRDataset, args,
                 imsave(e_np[j].transpose(1, 2, 0), path)
                 n_plotted += 1
 
+    if world > 1:
+        # the matrix and, last, the ranks that failed
+        flat = torch.from_numpy(np.append(mat.reshape(-1),
+                                          float(failure is not None)))
+        flat = grid.all_reduce_sum(flat.to(dev)).cpu().numpy()
+        mat = flat[:-1].reshape(mat.shape)
+        if failure is None and flat[-1] > 0:
+            failure = FloatingPointError(
+                f'evaluation of {ds.name} failed on another rank')
+    if failure is not None:
+        raise failure
+    sums = {scope: {m: float(mat[:, si, mi].sum())
+                    for mi, m in enumerate(EVAL_METRICS)}
+            for si, scope in enumerate(scopes)}
+    details = [{ds.ids[gi]: {m: float(mat[gi, si, mi])
+                             for mi, m in enumerate(EVAL_METRICS)}
+                for gi in range(n)} for si in range(len(scopes))]
     out = {'full': {m: sums['full'][m] / n for m in EVAL_METRICS},
-           'details': details, 'n': n,
+           'details': details[0], 'n': n,
            'time': time.perf_counter() - t0}
     if over_roi:
         out['roi'] = {m: sums['roi'][m] / n for m in EVAL_METRICS}
-        out['roi_details'] = roi_details
+        out['roi_details'] = details[1]
     return out
+
+
+def _check_metrics(res, n_valid: int, name: str, fast_sweep: bool):
+    """The failure of a batch's metrics (the first n_valid images): a
+    non-finite one, or a negative one unless fast_sweep; else None."""
+    for scope in res:
+        for m, v in res[scope].items():
+            vv = v[:n_valid]
+            if not np.all(np.isfinite(vv)):
+                DLLogger.log(f'CORRUPTED metric {scope}/{m} in {name}: {vv}')
+                return FloatingPointError(f'non-finite metric {scope}/{m}')
+            if np.any(vv < 0):
+                DLLogger.log(f'CORRUPTED metric {scope}/{m} in {name}: {vv}')
+                if not fast_sweep:
+                    return FloatingPointError(
+                        f'non-finite/negative metric {scope}/{m}')
+    return None
 
 
 def make_interpolate_forward(scale: int, mode: str) -> Callable:

@@ -8,6 +8,11 @@ moments decay and the counts advance; only the parameters stay), the
 EMA, and the skip / corruption flags. JAX jits the step with donated
 state; the port runs it eagerly and updates the parameters and the EMA
 in place.
+
+Under data parallelism (`grid`, parallel/mesh.py) each rank takes its
+rows of the global batch and draws; the grads are averaged over the
+ranks between the backward and the finite check, and the loss holder
+with them, so that every rank skips, updates and flags alike.
 """
 from typing import Callable
 
@@ -17,6 +22,7 @@ from srcaco2_tpu_torch import constants
 from srcaco2_tpu_torch.data import pipeline as P
 from srcaco2_tpu_torch.losses.master import MasterLoss
 from srcaco2_tpu_torch.ops.resize import resize2d
+from srcaco2_tpu_torch.parallel import mesh
 from srcaco2_tpu_torch.train.state import TrainState, all_finite, ema_update
 
 
@@ -117,7 +123,7 @@ def make_train_step(model, master: MasterLoss, tx, net_type: str,
                     steps_per_epoch: int = 1,
                     ppiw_table: torch.Tensor = None,
                     netG: dict = None,
-                    steps_per_call: int = 1) -> Callable:
+                    steps_per_call: int = 1, grid=None) -> Callable:
     """The train step: (state, hr_u8, lr_u8, idxs, draws) -> (state,
     loss holder, ok flag), where draws = pipeline.draw(gen, ...) are the
     batch's patch origins, dihedral modes and local-aug choices (JAX
@@ -135,7 +141,17 @@ def make_train_step(model, master: MasterLoss, tx, net_type: str,
     one flag for all K. Each update is the one-step function, so K steps
     in one call equal K calls of one step bit for bit. The caller picks
     the chunk's K (the trainer never lets a call cross an epoch, eval or
-    save boundary), so idxs may hold fewer than steps_per_call rows."""
+    save boundary), so idxs may hold fewer than steps_per_call rows.
+
+    grid (parallel/mesh.Grid): the step of one rank of a data-parallel
+    job. idxs and draws stay the global batch's; the rank takes its rows
+    (mesh.shard_train_step), its BatchNorms take the global statistics,
+    l2sum is scaled by the data shards, and one all-reduce of the grads
+    and one of the holder (with the prediction's finite flag) come
+    before the finite check, once per update (the superstep too)."""
+    if grid is not None:
+        mesh.sync_batch_norm(model, grid)
+        master.sum_scale = float(grid.data)
 
     def step_fn(state: TrainState, hr_u8, lr_u8, idxs, draws):
         epoch = torch.div(state.step, steps_per_epoch,
@@ -145,6 +161,16 @@ def make_train_step(model, master: MasterLoss, tx, net_type: str,
             model, master, net_type, state.params, batch, epoch,
             state.elb_t, netG, lsh=draws.lsh)
         with torch.no_grad():
+            pred_bad = ~torch.isfinite(pred).all()
+            if grid is not None:
+                grads = grid.all_reduce_grads(grads)
+                names = list(holder)
+                vals = grid.all_reduce_sum(torch.stack(
+                    [holder[k].detach().float() for k in names]
+                    + [pred_bad.float()]))
+                holder = {k: vals[i] / grid.world
+                          for i, k in enumerate(names)}
+                loss, pred_bad = holder['total'], vals[-1] > 0
             # non-finite loss or grads -> skip the update
             ok = torch.isfinite(loss) & all_finite(grads)
             safe = {k: torch.where(ok, g, torch.zeros_like(g))
@@ -158,7 +184,7 @@ def make_train_step(model, master: MasterLoss, tx, net_type: str,
                                      e_decay)
                 for k, e in state.ema_params.items():
                     e.copy_(new_ema[k])
-            corrupt = ~all_finite(state.params) | ~torch.isfinite(pred).all()
+            corrupt = ~all_finite(state.params) | pred_bad
             holder = {k: v.detach() for k, v in holder.items()}
             holder['_skipped'] = (~ok).float()
             holder['_corrupt'] = corrupt.float()
@@ -166,6 +192,8 @@ def make_train_step(model, master: MasterLoss, tx, net_type: str,
             state.step = state.step + 1
         return state, holder, ok & ~corrupt
 
+    if grid is not None:
+        step_fn = mesh.shard_train_step(step_fn, grid)
     if steps_per_call <= 1:
         return step_fn
 

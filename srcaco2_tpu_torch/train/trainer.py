@@ -30,9 +30,20 @@ stack while they take at most an eighth of the card's memory
 (pipeline.cache_budget) and else computed for each step's batch; ppiw
 builds its color table from the staged train HR stack.
 
-Not ported (they raise at parse time, ROADMAP.md): the reconstruct
-task, multi-GPU and the superstep probe that runs only under a mesh,
-and the cluster sync.
+Data parallelism (`distributed`, parallel/mesh.py): one process per
+card, a data x model grid of the ranks; the train step takes each
+rank's rows of the global batch and averages the grads over the ranks,
+`fast_eval` shares the batches. The master alone writes the experiment
+directory (checkpoints, best models, trackers, plots, `run_stats.json`,
+`passed.txt`), each save followed by a barrier; every rank reads the
+same files on resume. With a superstep (train_steps_per_call > 1) the
+start-up probe times K against K=1 on the live state, restored after
+it, and rank 0's choice holds on every rank (JAX's
+`_probe_superstep`). On a cluster (SLURM_JOB_ID or CC_CLUSTER) with
+`scratch_root`, the master mirrors the experiment directory there every
+synch_scratch_epoch_freq epochs (utils/cluster.py).
+
+Not ported (it raises at parse time, ROADMAP.md): the reconstruct task.
 """
 import json
 import os
@@ -52,6 +63,7 @@ from srcaco2_tpu_torch.losses.elb import update_t
 from srcaco2_tpu_torch.losses.master import build_loss
 from srcaco2_tpu_torch.models.registry import define_g
 from srcaco2_tpu_torch.ops.launches import launch_counts
+from srcaco2_tpu_torch.parallel import mesh
 from srcaco2_tpu_torch.train import checkpoint as CKPT
 from srcaco2_tpu_torch.train.evaluator import (fast_eval, log_perf,
                                                make_interpolate_forward)
@@ -62,6 +74,7 @@ from srcaco2_tpu_torch.train.state import TrainState
 from srcaco2_tpu_torch.train.steps import make_eval_forward, make_train_step
 from srcaco2_tpu_torch.utils import reproducibility as R
 from srcaco2_tpu_torch.utils import tracker as T
+from srcaco2_tpu_torch.utils.cluster import is_cluster, sync_exp_to_durable
 from srcaco2_tpu_torch.utils.logger import DLLogger, fmsg
 
 
@@ -70,6 +83,16 @@ def _freq_to_iters(v, steps_per_epoch: int) -> int:
     if isinstance(v, float) and 0 < v <= 1.0:
         return max(1, int(round(v * steps_per_epoch)))
     return int(v)
+
+
+def choose_superstep(k: int, rate_k: float, rate_1: float,
+                     margin: float = 1.05) -> int:
+    """The superstep probe's rule (JAX's trainer.choose_superstep): keep
+    the configured K unless one step per call (K=1) measures faster by
+    more than the margin."""
+    if rate_1 > margin * rate_k:
+        return 1
+    return k
 
 
 def _summary_entry(perf: Dict) -> Dict:
@@ -97,6 +120,13 @@ class Experiment:
     def __init__(self, args: dict):
         self.args = args
         self.device = dev = resolve_device(args.get('device'))
+        self.is_master = bool(args.get('is_master', True))
+        self.grid = None
+        if args.get('distributed', False):
+            if not mesh.is_initialized():
+                raise RuntimeError('distributed needs the process group '
+                                   '(config/parser.py:_setup_process)')
+            self.grid = mesh.make_mesh(args)
         self.exp_dir = args['abs_fd_exp'] or os.getcwd()
         nt = args['netG']['net_type']
         self.net_type = nt
@@ -158,6 +188,18 @@ class Experiment:
         bs = int(args['batch_size'])
         self.batch_size = bs
         self.steps_per_epoch = max(1, len(self.train_ds) // bs)
+        if self.grid is not None:
+            dsize = self.grid.data
+            if bs % dsize:
+                raise ValueError(f'batch_size {bs} not divisible by the '
+                                 f'data axis {dsize}')
+            DLLogger.log(f'grid: {self.grid.shape} over '
+                         f'{self.grid.world} processes')
+            if int(args['eval_bsize']) % dsize:
+                DLLogger.log(
+                    f"[warn] eval_bsize {args['eval_bsize']} not divisible "
+                    f"by the data axis {dsize} (the ranks share whole "
+                    f"eval batches, so nothing changes)")
 
         pre = args['netG'].get('init_pretrained_path', '')
         if pre:
@@ -202,7 +244,7 @@ class Experiment:
             self.model, self.master, self.tx, nt, self.pipe_cfg,
             e_decay=e_decay, steps_per_epoch=self.steps_per_epoch,
             ppiw_table=self.ppiw_table, netG=args['netG'],
-            steps_per_call=self.steps_per_call)
+            steps_per_call=self.steps_per_call, grid=self.grid)
         # amp without amp_eval: evaluate an f32 twin of the same weights
         eval_model = self.model
         if args.get('amp', False) and not args.get('amp_eval', False):
@@ -224,7 +266,9 @@ class Experiment:
         self.roi_tracker = T.find_last_tracker(
             self.exp_dir, 'roi_tracker.pkl') or \
             T.init_tracker(self.master.names, eval_names)
-        self.stats = {'device': str(dev), 'launches': {}, 'train_steps': 0,
+        self.stats = {'device': str(dev),
+                      'world_size': self.grid.world if self.grid else 1,
+                      'launches': {}, 'train_steps': 0,
                       'model_forwards': Counter(), 'train_windows': []}
 
     # ------------------------------------------------------------ helpers
@@ -270,9 +314,16 @@ class Experiment:
         bsz = int(self.args['eval_bsize'])
         self.stats['model_forwards'][phase] += -(-len(ds) // bsz)
         return self._counted(phase, fast_eval, self.forward, params, ds,
-                             self.args, bsz, phase, **kw)
+                             self.args, bsz, phase, grid=self.grid, **kw)
+
+    def _barrier(self):
+        """Every rank waits for the master's writes (no-op alone)."""
+        if self.grid is not None:
+            self.grid.barrier(self.device)
 
     def write_stats(self, outdir: str):
+        if not self.is_master:
+            return
         if self.device.type == 'cuda':
             # the process's peaks so far (training, validation and test)
             self.stats['max_memory_allocated'] = \
@@ -297,7 +348,8 @@ class Experiment:
         for ds in self.valid_sets:
             img_dir = os.path.join(self.exp_dir, args['save_dir_imgs'],
                                    constants.VALIDSET, ds.name)
-            os.makedirs(img_dir, exist_ok=True)
+            if self.is_master:
+                os.makedirs(img_dir, exist_ok=True)
             perf = self._model_eval(constants.VALIDSET, self.eval_params(),
                                     ds, save_img_dir=img_dir,
                                     current_step=step,
@@ -312,7 +364,7 @@ class Experiment:
                     perf['roi'], step, args['model_select_mtr'])
                 if args.get('eval_over_roi_also_model_select', False):
                     is_best = roi_best
-            if is_best:
+            if is_best and self.is_master:
                 CKPT.save_best(self.exp_dir, self.eval_params(),
                                ds.name if multi else None)
                 safe = ds.name.replace('/', '_')
@@ -324,6 +376,7 @@ class Experiment:
                     summary['roi'] = perf['roi']
                 yaml_io.dump(summary, os.path.join(bd, f'summary_{safe}.yaml'))
                 DLLogger.log(f'[best] new best on {ds.name} @ {step}')
+        self._barrier()       # the best models are on disk for every rank
 
     def evaluate_test(self, step: int, use_best: bool = True):
         """Test protocol: per test set, the best model (of the matching
@@ -343,19 +396,22 @@ class Experiment:
                                  f'the current weights')
             img_dir = os.path.join(self.exp_dir, args['save_dir_imgs'],
                                    constants.TESTSET, ds.name)
-            os.makedirs(img_dir, exist_ok=True)
+            if self.is_master:
+                os.makedirs(img_dir, exist_ok=True)
             perf = self._model_eval(constants.TESTSET, params, ds,
                                     save_img_dir=img_dir,
                                     current_step=step)
             log_perf(f'test/{ds.name}@{step}', perf)
             summary[ds.name] = _summary_entry(perf)
-            dd = os.path.join(self.exp_dir, 'best-models')
-            os.makedirs(dd, exist_ok=True)
-            yaml_io.dump(perf['details'], os.path.join(
-                dd, f'details_test_{ds.name}.yml'.replace('/', '_')))
-            if 'roi_details' in perf:
-                yaml_io.dump(perf['roi_details'], os.path.join(
-                    dd, f'details_test_roi_{ds.name}.yml'.replace('/', '_')))
+            if self.is_master:
+                dd = os.path.join(self.exp_dir, 'best-models')
+                os.makedirs(dd, exist_ok=True)
+                yaml_io.dump(perf['details'], os.path.join(
+                    dd, f'details_test_{ds.name}.yml'.replace('/', '_')))
+                if 'roi_details' in perf:
+                    yaml_io.dump(perf['roi_details'], os.path.join(
+                        dd, f'details_test_roi_{ds.name}.yml'
+                        .replace('/', '_')))
             T.update_tracker_eval(self.tracker, constants.TESTSET,
                                   ds.name, perf['full'], step,
                                   args['model_select_mtr'])
@@ -365,7 +421,8 @@ class Experiment:
                                       args['model_select_mtr'])
             bperf = self._counted(constants.TESTSET, fast_eval,
                                   self.interp_forward, None, ds, args,
-                                  int(args['eval_bsize']), constants.TESTSET)
+                                  int(args['eval_bsize']), constants.TESTSET,
+                                  grid=self.grid)
             log_perf(f'test/{ds.name}_bicubic@{step}', bperf)
             summary[ds.name + '_bicubic'] = _summary_entry(bperf)
             T.update_tracker_eval(self.tracker, constants.TESTSET,
@@ -378,12 +435,93 @@ class Experiment:
         return summary
 
     def _save(self) -> None:
-        CKPT.save_checkpoint(self.exp_dir, self.state, self.buffers)
-        CKPT.gc_checkpoints(self.exp_dir, int(self.state.step))
+        if self.is_master:
+            CKPT.save_checkpoint(self.exp_dir, self.state, self.buffers)
+            CKPT.gc_checkpoints(self.exp_dir, int(self.state.step))
+        self._barrier()
 
     def _save_trackers(self) -> None:
-        T.save_tracker(self.tracker, self.exp_dir)
-        T.save_tracker(self.roi_tracker, self.exp_dir, 'roi_tracker.pkl')
+        if self.is_master:
+            T.save_tracker(self.tracker, self.exp_dir)
+            T.save_tracker(self.roi_tracker, self.exp_dir,
+                           'roi_tracker.pkl')
+
+    # ------------------------------------------------------ superstep probe
+    def _snapshot(self) -> dict:
+        """Copies of everything a train step changes: the parameters, the
+        optimizer state, the EMA, step, elb_t and the model's buffers
+        (BatchNorm statistics, ENLCN's projections)."""
+        st = self.state
+
+        def clone(tree):
+            if isinstance(tree, dict):
+                return {k: clone(v) for k, v in tree.items()}
+            return tree.detach().clone() if torch.is_tensor(tree) else tree
+        return dict(params=clone(st.params), opt_state=clone(st.opt_state),
+                    ema=clone(st.ema_params), step=clone(st.step),
+                    elb_t=clone(st.elb_t), buffers=clone(self.buffers))
+
+    def _restore(self, snap: dict) -> None:
+        st = self.state
+        CKPT.copy_into(st.params, snap['params'])
+        CKPT.copy_into(self.buffers, snap['buffers'])
+        if st.ema_params is not None:
+            CKPT.copy_into(st.ema_params, snap['ema'])
+        st.opt_state = snap['opt_state']
+        st.step, st.elb_t = snap['step'], snap['elb_t']
+
+    def _probe_superstep(self, hr_dev, lr_dev, n_train: int) -> None:
+        """Time K = train_steps_per_call against K=1 on the staged data
+        and keep the faster (choose_superstep's hysteresis toward K), as
+        JAX does under a mesh. The steps run on the live state and
+        everything they change is restored after them, so training with
+        the probe equals training without it bit for bit. Rank 0's
+        choice holds on every rank (the timings differ between ranks)."""
+        args = self.args
+        k, bs, dev = self.steps_per_call, self.batch_size, self.device
+        hr_hw = tuple(hr_dev.shape[1:3])
+        fn1 = make_train_step(
+            self.model, self.master, self.tx, self.net_type, self.pipe_cfg,
+            e_decay=self.e_decay, steps_per_epoch=self.steps_per_epoch,
+            ppiw_table=self.ppiw_table, netG=args['netG'],
+            steps_per_call=1, grid=self.grid)
+
+        def sync():
+            if dev.type == 'cuda':
+                torch.cuda.synchronize(dev)
+
+        def rate(fn, kk, calls):
+            idxs = (torch.arange(kk * bs, device=dev) % n_train).reshape(
+                kk, bs)
+            draws = [P.draw(
+                R.step_generator(self.seed, j, dev), bs, self.pipe_cfg,
+                hr_hw, None if self.origins is None
+                else self.origins.of(idxs[j]))._replace(
+                    lsh=R.lsh_generator(self.seed, j)) for j in range(kk)]
+            args_ = (idxs, draws) if kk > 1 else (idxs[0], draws[0])
+            fn(self.state, hr_dev, lr_dev, *args_)           # warm-up
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn(self.state, hr_dev, lr_dev, *args_)
+            sync()
+            return calls * kk * bs / (time.perf_counter() - t0)
+
+        snap = self._snapshot()
+        try:
+            calls_k = 3
+            rate_k = rate(self.train_step, k, calls_k)
+            rate_1 = rate(fn1, 1, calls_k * k)
+        finally:
+            self._restore(snap)
+        chosen = self.grid.broadcast_int(choose_superstep(k, rate_k, rate_1),
+                                         dev)
+        DLLogger.log(f'superstep probe (grid {self.grid.shape}): K={k} '
+                     f'{rate_k:.1f} patches/s vs K=1 {rate_1:.1f} '
+                     f'patches/s -> K={chosen}')
+        if chosen == 1:
+            self.steps_per_call = 1
+            self.train_step = fn1
 
     # ------------------------------------------------------------- train
     def train_valid(self):
@@ -402,7 +540,8 @@ class Experiment:
             DLLogger.log(fmsg('step-0 bicubic-baseline validation'))
             for ds in self.valid_sets:
                 perf = fast_eval(self.interp_forward, None, ds, args,
-                                 int(args['eval_bsize']), constants.VALIDSET)
+                                 int(args['eval_bsize']), constants.VALIDSET,
+                                 grid=self.grid)
                 log_perf(f'valid/{ds.name}_bicubic@0', perf)
 
         hr_dev, lr_dev = self.train_ds.hr_dev, self.train_ds.lr_dev
@@ -412,6 +551,14 @@ class Experiment:
         step = start_step
         epoch_losses: Dict[str, list] = {}
         last_epoch = step // spe
+        # JAX's condition, with distributed in place of its mesh
+        if (self.grid is not None and self.steps_per_call > 1
+                and bool(args['train'].get('train_superstep_probe', True))
+                and spe >= self.steps_per_call
+                and total_steps - start_step >= 50 * self.steps_per_call):
+            self._probe_superstep(hr_dev, lr_dev, n_train)
+        sync_freq = int(args['train'].get('synch_scratch_epoch_freq', 0)
+                        or 0)
         DLLogger.log(fmsg(
             f'training {self.net_type}: {n_train} samples, '
             f'{spe} steps/epoch, {max_epochs} epochs'))
@@ -540,8 +687,15 @@ class Experiment:
                 if test_epoch_freq and new_epoch % test_epoch_freq == 0:
                     self.state = state
                     self.evaluate_test(step)
-                if plot_epoch_freq and new_epoch % plot_epoch_freq == 0:
+                if plot_epoch_freq and new_epoch % plot_epoch_freq == 0 \
+                        and self.is_master:
                     T.plot_tracker(self.tracker, self.exp_dir)
+                # the preemptible cluster's mirror (the master writes the
+                # experiment directory, so it alone mirrors it)
+                if sync_freq and new_epoch % sync_freq == 0 \
+                        and self.is_master and is_cluster() \
+                        and args.get('scratch_root'):
+                    sync_exp_to_durable(self.exp_dir, args['scratch_root'])
                 last_epoch = new_epoch
 
         drain_flags()
@@ -554,7 +708,7 @@ class Experiment:
         if not fast_sweep:
             self.evaluate_test(step, use_best=True)
         self._save_trackers()
-        if not fast_sweep:
+        if not fast_sweep and self.is_master:
             T.plot_tracker(self.tracker, self.exp_dir)
             if args.get('eval_over_roi_also', False):
                 T.plot_tracker(self.roi_tracker, self.exp_dir,
@@ -567,9 +721,10 @@ class Experiment:
                         'eval_over_roi_also_model_select', False)))
         self.write_stats(self.exp_dir)
         total_t = time.perf_counter() - t_start
-        with open(os.path.join(self.exp_dir, 'passed.txt'), 'w') as f:
-            f.write(f'done in {total_t:.1f}s\n')
-        with open(os.path.join(self.exp_dir, 'LOG.txt'), 'a') as f:
-            f.write(f'{self.net_type} x{args["scale"]} '
-                    f'steps={step} time={total_t:.1f}s\n')
+        if self.is_master:
+            with open(os.path.join(self.exp_dir, 'passed.txt'), 'w') as f:
+                f.write(f'done in {total_t:.1f}s\n')
+            with open(os.path.join(self.exp_dir, 'LOG.txt'), 'a') as f:
+                f.write(f'{self.net_type} x{args["scale"]} '
+                        f'steps={step} time={total_t:.1f}s\n')
         DLLogger.log(fmsg(f'training done in {total_t:.1f}s'))

@@ -30,7 +30,7 @@ LISTS = ['--swinir_depths', '[2, 2]', '--swinir_num_heads', '[2, 2]',
          '--G_optimizer_lr', '1e-5']
 CASES = {'defaults': [], 'readme': README, 'lists': README + LISTS}
 # the port's own keys; the JAX package has none the port lacks
-PORT_ONLY = {'device'}
+PORT_ONLY = {'device', 'init_method', 'dist_timeout_s'}
 
 
 def _flat(d, prefix=''):
@@ -70,13 +70,26 @@ def test_lists_parse_without_pyyaml(monkeypatch):
     assert TPARSE.get_args(README + LISTS) == with_yaml
 
 
-def test_refused_settings_raise():
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        TPARSE.get_args(['--distributed', 'True'])
+def test_refused_settings_raise(monkeypatch):
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         TPARSE.get_args(['--task', 'reconstruct'])
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        TPARSE.get_args(['--scratch_root', '/tmp/scratch'])
+    # distributed and scratch_root parse; with no launcher's variables
+    # the world is one process: rank 0 of 1, the master, mesh_data 1
+    for var in ('RANK', 'WORLD_SIZE', 'LOCAL_RANK', 'SLURM_PROCID',
+                'SLURM_NTASKS', 'SLURM_LOCALID', 'MASTER_ADDR'):
+        monkeypatch.delenv(var, raising=False)
+    args = TPARSE.get_args(['--distributed', 'True', '--scratch_root',
+                            '/tmp/scratch', '--device', 'cpu'])
+    assert args['distributed'] and args['scratch_root'] == '/tmp/scratch'
+    from srcaco2_tpu_torch.parallel import mesh
+    try:
+        args = TPARSE._setup_process(args)
+        assert mesh.is_initialized() and mesh.device_count() == 1
+    finally:
+        if mesh.is_initialized():
+            mesh.destroy_process_group()
+    assert (args['rank'], args['world_size'], args['mesh_data']) == (0, 1, 1)
+    assert args['is_master'] and args['is_node_master']
     # the options ported since parse: the regularizers, sampling, the
     # local augs, ppiw and the loss terms
     args = TPARSE.get_args(
