@@ -137,6 +137,26 @@ non-zero:
                 entry_x8's gates, only rank 0 writes in the experiment
                 tree (audited), the final params bit-equal to
                 entry_x8's with one card (a world of one)
+  native_check  the host lattice ops (losses/crf.py, ops/pam.py; native/
+                built with g++): dense_crf_loss's value and gradient and
+                permutohedral_attention on CUDA tensors equal to the same
+                calls on CPU tensors and returned on the card; their ms
+  reconstruct_profile  the reconstruct task's train step in this process
+                (the flagship at upscale 1, 16x16 patches of 64x64 LR
+                images and their blur chain, batch 64): 5 timed steps,
+                36 K1 + 36 K2 per step, peak memory, the device time of
+                one step by kernel and the busy share
+  entry_reconstruct  entry_x8's flags plus --task reconstruct (the blurred
+                LR -> the LR at scale 1, 16x16 LR patches: K1 + K2; 64x64
+                validation / test images: K5); entry_x8's gates; then on
+                its experiment reevaluate_reconstruct 'fake' equal to
+                eval within 1e-6, its _bicubic floor the PSNR of the
+                blurred input against its target in numpy (1e-4 dB), 36
+                K5 per forward; 'real' on 2 images (input == target);
+                noise_study at sigma 0 and 20 on 4 images (sigma 0 equal
+                to reevaluate, the sigma-20 noise in the input); `python -m srcaco2_tpu_torch.eval_all`
+                over the tree: one 'ok' row equal to eval; the figure
+                recorded as skipped where matplotlib is missing
   entry_x2      the same at the defaults (x2, h_size 96: the windowed path
                 in training, no K1 / K2; f32; batch 8; 32 / 4 / 4 images,
                 2 epochs: 8 steps; K5 in f32 on 256x256 LR validation);
@@ -193,6 +213,7 @@ Imports nothing of JAX or of the JAX package.
 import argparse
 import contextlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -2882,6 +2903,18 @@ ENTRY = {
                          '--eval_over_roi_also_model_select', 'True',
                          '--swinir_upsampler', 'pixelshuffledirect', '--amp',
                          'True', '--batch_size', '64']),
+    # entry_x8 as a reconstruct run: the blurred LR -> the LR at scale 1
+    # on 16x16 LR patches, the net's upsampler at upscale 1; then the
+    # experiment-tree tools on its experiment (reconstruct_tools)
+    'entry_reconstruct': dict(
+        scale=8, n_train=128, n_val=8, n_test=8, epochs=3, steps=6,
+        tools=True,
+        flags=['--task', 'reconstruct', '--h_size', '128', '--l2', 'True',
+               '--ssim', 'True', '--ssim_lambda', '5.', '--ssim_window_s',
+               '19', '--eval_over_roi_also', 'True',
+               '--eval_over_roi_also_model_select', 'True',
+               '--swinir_upsampler', 'pixelshuffledirect', '--amp', 'True',
+               '--batch_size', '64']),
     'entry_x2': dict(
         scale=2, n_train=32, n_val=4, n_test=4, epochs=2, steps=8,
         flags=['--h_size', '96', '--l2', 'True', '--ssim', 'True',
@@ -2934,6 +2967,265 @@ if _root:
                 os.write(_fd, (event + ' ' + path + chr(10)).encode())
     sys.addaudithook(_hook)
 """
+
+
+# the tools' tolerances: a re-score of the same model on the same card
+# against eval's (the same forward and metrics: only a batch's order of
+# sums may differ); the floor's PSNR against float64 numpy (the port sums
+# each image's squared uint8 differences in f32)
+TOOLS_TOL = {'rescore': 1e-6, 'numpy_psnr_db': 1e-4}
+
+
+def numpy_psnr(e_u8, h_u8, border):
+    """Mean over the images (N, H, W, C) of PSNR(e, h) in float64, with
+    ops/metrics.py's border crop and its cap for identical images."""
+    import numpy as np
+    e = e_u8.astype(np.float64)[:, border:-border, border:-border]
+    h = h_u8.astype(np.float64)[:, border:-border, border:-border]
+    mse = ((e - h) ** 2).reshape(e.shape[0], -1).mean(1)
+    psnr = 20.0 * np.log10(255.0 / np.sqrt(np.maximum(mse, 1e-37)))
+    return float(np.where(mse < 1e-37, 496.6655, psnr).mean())
+
+
+def _rows_close(got, want, tol):
+    """{ds: {'psnr', 'ssim'}} rows (fast_eval's 'full' or a summary's)
+    within tol of want's; the largest difference."""
+    worst = max(abs(got[ds][m] - want[ds][m]) for ds in want
+                for m in ('psnr', 'ssim'))
+    return worst <= tol, worst
+
+
+def reconstruct_tools(exp, names, n_test, rescored, tmp, out_dir=None,
+                      device='cuda'):
+    """The experiment-tree tools on entry_reconstruct's experiment (its
+    test split of n_test images; eval's rows `rescored`) on `device`, in
+    this process (the sweep in a subprocess): see the module's
+    docstring. Returns (record, ok)."""
+    import io
+    import shutil
+    import numpy as np
+    from srcaco2_tpu_torch.config import yaml_io
+    from srcaco2_tpu_torch.data.dataset import load_dataset
+    from srcaco2_tpu_torch.inference import reconstruct as IR
+    from srcaco2_tpu_torch.inference.super_res import add_roi_noise
+    test, floor = names[2], names[2] + '_bicubic'
+    args = yaml_io.load(os.path.join(exp, 'config_model.yml'))
+    forwards = -(-n_test // int(args['eval_bsize']))
+    eval_rows = {ds: {m: rescored[ds][m][0] for m in ('psnr', 'ssim')}
+                 for ds in (test, floor)}
+    rec, log, seconds = {}, io.StringIO(), {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    with contextlib.redirect_stdout(log):
+        reset_launches()
+        fake = timed('fake', lambda: IR.reevaluate_reconstruct(
+            exp, 'fake', device=device))
+        launches = read_launches()
+        fake_rows = {ds: fake[ds]['full'] for ds in (test, floor)}
+        fake_ok, fake_err = _rows_close(fake_rows, eval_rows,
+                                        TOOLS_TOL['rescore'])
+        ds = load_dataset(args, test, 'eval')
+        floor_np = numpy_psnr(ds.lr, ds.hr, int(args['scale']))
+        floor_err = abs(floor_np - fake[floor]['full']['psnr'])
+        real = timed('real', lambda: IR.reevaluate_reconstruct(
+            exp, 'real', n=2, device=device))
+        ds_real = load_dataset({**args, 'reconstruct_input': 'real'}, test,
+                               'eval', n=2)
+        real_same = bool(np.array_equal(ds_real.lr, ds_real.hr))
+        noise = timed('noise_study', lambda: IR.noise_study(
+            exp, sigmas=(0, 20), n=4, device=device))
+        plain = timed('reevaluate', lambda: IR.reevaluate(
+            exp, n=4, device=device))
+        noise_ok, noise_err = _rows_close(
+            {test: noise[0][test]['full']}, {test: plain[test]['full']},
+            TOOLS_TOL['rescore'])
+        # the noise reaches the input (a few-step net's output may not
+        # move: its pixels sit at 0 or 255)
+        lr4 = load_dataset(args, test, 'eval', n=4).lr
+        moved = float((add_roi_noise(lr4, 20.0, 7.0) != lr4).mean())
+        path = os.path.join(out_dir or tmp, 'entry_reconstruct.png')
+        try:
+            figure = timed('figure', lambda: IR.reconstruct_figure(
+                exp, path, device=device))
+        except ImportError as e:
+            figure = ('skipped: no matplotlib' if 'matplotlib' in str(e)
+                      else f'skipped: {e}')
+    sweep = os.path.join(tmp, 'eval_all.json')
+    rc, seconds['eval_all'] = _run_entry(
+        ['srcaco2_tpu_torch.eval_all', '--exps_root',
+         os.path.join(tmp, 'exps'), '--out', sweep, '--device', device],
+        tmp,
+        os.path.join(tmp, 'eval_all.log'))
+    rows = {}
+    if rc == 0:
+        with open(sweep) as f:
+            rows = json.load(f)
+    sweep_ok = (len(rows) == 1 and all(
+        r['status'] == 'ok' and _rows_close(r['datasets'], eval_rows,
+                                            TOOLS_TOL['rescore'])[0]
+        for r in rows.values()))
+    if out_dir:
+        dst = os.path.join(out_dir, 'entry_reconstruct')
+        os.makedirs(dst, exist_ok=True)
+        with open(os.path.join(dst, 'tools.log'), 'w') as f:
+            f.write(log.getvalue())
+        for f in (sweep, os.path.join(tmp, 'eval_all.log')):
+            if os.path.isfile(f):
+                shutil.copy(f, dst)
+    rec.update(
+        tolerances=TOOLS_TOL, seconds=seconds,
+        fake={ds: fake_rows[ds] for ds in fake_rows},
+        fake_equals_eval=fake_ok, fake_max_diff=fake_err,
+        fake_launches=launches, fake_forwards=forwards,
+        floor_numpy_psnr=floor_np, floor_numpy_diff=floor_err,
+        real={k: v['full'] for k, v in real.items()},
+        real_input_equals_target=real_same,
+        noise={str(s): {k: v['full'] for k, v in r.items()}
+               for s, r in noise.items()},
+        noise_sigma0_equals_reevaluate=noise_ok, noise_sigma0_diff=noise_err,
+        noise_sigma20_input_moved_share=moved,
+        noise_sigma20_moves_psnr=noise[20][test]['full']['psnr']
+        != noise[0][test]['full']['psnr'],
+        eval_all_rc=rc, eval_all_rows=rows, eval_all_ok=sweep_ok,
+        figure=figure)
+    ok = (fake_ok and floor_err <= TOOLS_TOL['numpy_psnr_db']
+          and launches['grouped'] == 36 * forwards
+          and all(launches[k] == 0 for k in launches if k != 'grouped')
+          and real_same and floor in real
+          and real[floor]['full']['mse'] == 0.0
+          and noise_ok and moved > 0 and sweep_ok)
+    return rec, ok
+
+
+def reconstruct_profile(dev, smi, steps=5, batch=64):
+    """The reconstruct task's train step in this process, as
+    entry_reconstruct's `main` builds it: the flagship at upscale 1
+    (bf16 over f32 params, random seeded weights), the pipeline at
+    scale 1 on 16x16 patches, N_IMG LR images of 64x64 and their blur
+    chain (data/dataset.py) as the pairs, at the README's batch 64. One
+    warm-up step, `steps` timed (ms per step, peak memory, launches:
+    36 K1 + 36 K2 per step and nothing else), then the device time of
+    one step by kernel and the device's busy share (profile_device).
+    Returns (record, ok)."""
+    import numpy as np
+    import torch
+    from srcaco2_tpu_torch.data import pipeline as P
+    from srcaco2_tpu_torch.data.dataset import blur_true_lr
+    from srcaco2_tpu_torch.losses.master import build_loss
+    from srcaco2_tpu_torch.models.registry import define_g
+    from srcaco2_tpu_torch.train.schedule import build_optimizer
+    from srcaco2_tpu_torch.train.state import TrainState
+    from srcaco2_tpu_torch.train.steps import make_train_step
+    args = flagship_args()
+    args['netG']['swinir_upscale'] = 1
+    targs, _ = train_config()
+    cfg = P.PipeConfig(scale=1, h_size=H_SIZE // SCALE)
+    model = define_g(args, dev, seed=0).train()
+    tx = build_optimizer(targs['train'])
+    state = TrainState.create(dict(model.named_parameters()), tx)
+    step = make_train_step(model, build_loss(targs), tx, 'SwinIR', cfg,
+                           steps_per_epoch=1000)
+    lr_np = np.random.default_rng(0).integers(
+        0, 256, (N_IMG, LR, LR, 1), dtype=np.uint8)
+    blurred = np.clip(np.round(blur_true_lr(lr_np) * 255.0), 0,
+                      255).astype(np.uint8)
+    hr, lr = (torch.from_numpy(a).to(dev) for a in (lr_np, blurred))
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def inputs():
+        idxs = torch.randint(0, N_IMG, (batch,), generator=gen, device=dev)
+        return idxs, P.draw(gen, batch, cfg, (LR, LR))
+    state, holder, _ = step(state, hr, lr, *inputs())
+    torch.cuda.synchronize()
+    todo = [inputs() for _ in range(steps)]
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    flags = torch.zeros((), device=dev)
+    for idxs, draws in todo:
+        state, holder, _ = step(state, hr, lr, idxs, draws)
+        flags = flags + holder['_flags']
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / steps
+    launches = read_launches()
+    rec = dict(
+        model='SwinIR pixelshuffledirect at upscale 1, C=180 6x6 heads 6 '
+        'ws 8, bf16 compute over f32 params, random weights (seed 0)',
+        batch=batch, patch=[cfg.h_size, cfg.h_size], steps=steps,
+        ms_per_step=ms, patches_per_s=1e3 * batch / ms,
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        loss=float(holder['total']), flags_sum=float(flags),
+        launches=launches, nvidia_smi=smi)
+    idxs, draws = inputs()
+    rec['profile'] = profile_device(
+        lambda: step(state, hr, lr, idxs, draws), ms, host_ops=False)
+    ok = (math.isfinite(rec['loss']) and rec['flags_sum'] == 0
+          and launches['fwd'] == launches['bwd'] == 36 * steps
+          and all(v == 0 for k, v in launches.items()
+                  if k not in ('fwd', 'bwd')))
+    return rec, ok
+
+
+def native_check(dev):
+    """dense_crf_loss (value and the segmentations' gradient) and
+    permutohedral_attention on CUDA tensors against the same calls on
+    CPU tensors (the lattice runs on the host either way; only the
+    device-side sums and divisions move), their results on the card;
+    the ms of a call on the card (host clock, synchronised). Returns
+    (record, ok)."""
+    import torch
+    from srcaco2_tpu_torch import native
+    from srcaco2_tpu_torch.losses.crf import dense_crf_loss
+    from srcaco2_tpu_torch.ops.pam import permutohedral_attention
+    t0 = time.perf_counter()
+    native.build_library()
+    build_s = time.perf_counter() - t0
+    gen = torch.Generator().manual_seed(0)
+    img = torch.randint(0, 256, (2, 1, 128, 128), generator=gen).float()
+    seg = torch.softmax(torch.randn(2, 4, 128, 128, generator=gen), 1)
+    feats = 3.0 * torch.rand(2, 4096, 3, generator=gen)
+    vals = torch.rand(2, 4096, 16, generator=gen)
+
+    def crf(d):
+        s = seg.to(d, copy=True).requires_grad_()
+        loss = dense_crf_loss(img.to(d), s, 15.0, 80.0)
+        loss.backward()
+        return loss.detach(), s.grad
+
+    def pam(d):
+        return permutohedral_attention(feats.to(d), vals.to(d))
+
+    def host_ms(fn, reps=3):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t) / reps
+
+    (lc, gc), (lg, gg) = crf('cpu'), crf(dev)
+    pc, pg = pam('cpu'), pam(dev)
+
+    def rel(a, b):
+        return float((a.cpu() - b).abs().max() / b.abs().max())
+    rec = dict(build_seconds=build_s, crf_shape=list(seg.shape),
+               pam_shape=[list(feats.shape), list(vals.shape)],
+               crf_loss=float(lg), crf_loss_rel_err=rel(lg, lc),
+               crf_grad_rel_err=rel(gg, gc), pam_rel_err=rel(pg, pc),
+               on_card=all(t.device.type == 'cuda' for t in (lg, gg, pg)),
+               crf_ms=host_ms(lambda: crf(dev)), pam_ms=host_ms(
+                   lambda: pam(dev)), tol=1e-6)
+    ok = rec['on_card'] and max(rec['crf_loss_rel_err'],
+                                rec['crf_grad_rel_err'],
+                                rec['pam_rel_err']) <= 1e-6
+    return rec, ok
 
 
 def entry_ddp_nproc():
@@ -3134,6 +3426,9 @@ def entry_phase(name, out_dir=None, keep_dir=None):
                                for i in kept))
                 ok = (ok and rec['terms_finite'] and len(kept) > 0
                       and len(per_iter) == len(ENTRY_OPT_TERMS) + 4)
+            if ok and cfg.get('tools'):
+                rec['tools'], ok = reconstruct_tools(
+                    exp, names, cfg['n_test'], rescored, tmp, out_dir)
         rec['wall_seconds'] = time.perf_counter() - t_all
         rec['ok'] = ok
         return rec, ok
@@ -4183,6 +4478,21 @@ def main() -> int:
         print('chip_smoke: ddp_check failed', file=sys.stderr)
         return 1
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    native, ok = native_check(dev)
+    native = emit('native_check', **native, nvidia_smi=smi,
+                  phase_seconds=time.perf_counter() - t0)
+    if not ok:
+        print('chip_smoke: native_check failed', file=sys.stderr)
+        return 1
+    t0 = time.perf_counter()
+    recon, ok = reconstruct_profile(dev, smi)
+    recon = emit('reconstruct_profile', **recon,
+                 phase_seconds=time.perf_counter() - t0)
+    if not ok:
+        print('chip_smoke: reconstruct_profile failed', file=sys.stderr)
+        return 1
+    torch.cuda.empty_cache()
     # the entry runs are processes of their own, each far from the
     # card's memory (5.6 GB reserved at x8, 17.7 at x2, on an NVIDIA H100
     # 80GB HBM3 at 700 W), so they run at the same time
@@ -4311,7 +4621,8 @@ def main() -> int:
                        'eval_unfused': ev, 'eval_unfused_profile': ev_prof,
                        'windowed_check': windowed,
                        'windowed_profile': wprof, 'options_check': opts,
-                       'ddp_check': ddp,
+                       'ddp_check': ddp, 'native_check': native,
+                       'reconstruct_profile': recon,
                        **entries, **zoo,
                        'kernels': kernels}, f, indent=1)
     print(json.dumps({'kernels': kernels}))

@@ -18,3 +18,16 @@ def resolve_device(device=None) -> torch.device:
             'no CUDA device is visible; pass device="cpu" to run the '
             'plain PyTorch versions on the CPU')
     return dev
+
+
+def exact_f32(device: torch.device) -> None:
+    """On the card, f32 computes in true f32 as the JAX package does
+    (TF32 off for matmuls and cuDNN; bf16 operands are exact in TF32
+    either way) and cuDNN picks deterministic algorithms (its default for
+    an f32 transposed convolution sums with atomics, so that two f32
+    forwards of MSLapSRN or SRFBN would differ in the last bits and a
+    re-evaluation would not reproduce a test). No-op on the CPU."""
+    if device.type == 'cuda':
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True

@@ -6,7 +6,7 @@ defaults (`init_net_g`) -> the command line (config/parser.py).
 from srcaco2_tpu_torch import constants
 from srcaco2_tpu_torch.config.net_defaults import init_net_g
 
-# reconstruction-task names (the task itself is not ported)
+# reconstruction-task names (data/dataset.py:_reconstruct_pair)
 LOW_RES = 'low_res'
 RECON_IN_FAKE = 'fake'
 

@@ -157,8 +157,7 @@ def _check(cond: bool, what) -> None:
 
 
 def _sanity(config: dict):
-    """The JAX package's sanity checks (as ValueError, not assert), and
-    the settings the port refuses."""
+    """The JAX package's sanity checks (as ValueError, not assert)."""
     _check(config['task'] in constants.TASKS, config['task'])
     _check(config['scale'] in constants.SCALES, config['scale'])
     _check(config['h_size'] % config['scale'] == 0,
@@ -183,9 +182,6 @@ def _sanity(config: dict):
         _check(ok, f'{key}={v}')
     if config['ssim']:
         _check(config['ssim_window_s'] % 2 == 1, config['ssim_window_s'])
-    if config['task'] == constants.RECONSTRUCT:
-        raise NotImplementedError(
-            'the reconstruct task: not ported yet (see ROADMAP.md)')
 
 
 def outfd(config: dict, root: Optional[str] = None) -> str:

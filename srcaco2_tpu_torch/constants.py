@@ -88,6 +88,7 @@ SPLITS = [TRAINSET, VALIDSET, TESTSET]
 CELL0 = 'CELL0'  # Survivin
 CELL1 = 'CELL1'  # E-cadherin / GFP-tubulin
 CELL2 = 'CELL2'  # mCherry-Histone-H2B
+CELLS = [CELL0, CELL1, CELL2]
 SCALES = [2, 4, 8]
 CODE_IDENTIFIER = 'CODEXXXXXXXIDENTIFIER'
 _CACO2_FMT = 'caco2_{split}_X_{scale}_in_{inres}_out_512_cell_{cell}'

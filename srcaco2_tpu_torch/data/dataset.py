@@ -12,6 +12,12 @@ th), clamped and truncated again. JAX draws that noise from
 `fold_in(key(seed), sample index)`; the port draws it from a
 torch.Generator seeded from (seed, sample index), so the noisy LR is
 not JAX's (the noiseless one is).
+
+The reconstruct task (task=reconstruct, JAX's dataset.py:215-243) maps
+each split onto the LR grid at scale 1: with reconstruct_input=fake the
+pair is (the LR through `blur_true_lr`'s chain -> the LR itself); with
+real (eval only) input and target are both the HR downscaled without
+noise.
 """
 import os
 from dataclasses import dataclass, field
@@ -23,7 +29,7 @@ import torch
 from srcaco2_tpu_torch import constants
 from srcaco2_tpu_torch.data import folds as F
 from srcaco2_tpu_torch.data import io as dio
-from srcaco2_tpu_torch.ops.resize import interpolate
+from srcaco2_tpu_torch.ops.resize import imresize_matlab, interpolate
 from srcaco2_tpu_torch.utils.reproducibility import derived_seed
 
 SEP = '+'
@@ -107,16 +113,27 @@ def synth_lr_from_hr(hr_u8: np.ndarray, scale: int, seed: int,
     return np.concatenate(chunks, 0)
 
 
+def blur_true_lr(lr_u8: np.ndarray, batch: int = 256) -> np.ndarray:
+    """The reconstruct task's blur chain (JAX's dataset.py:blur_true_lr):
+    two rounds of MATLAB-bicubic x2 then x0.5, in f32 on the host, then
+    / 255. (N, h, w, C) uint8 -> (N, h, w, C) f32 in [0, 1]."""
+    outs = []
+    for i in range(0, lr_u8.shape[0], batch):
+        x = torch.from_numpy(lr_u8[i:i + batch]).float().permute(0, 3, 1, 2)
+        for _ in range(2):
+            x = imresize_matlab(x, 2.0)
+            x = imresize_matlab(x, 0.5)
+        outs.append((x / 255.0).permute(0, 2, 3, 1).numpy())
+    return np.concatenate(outs, 0)
+
+
 def load_dataset(args, ds_name: str, phase: str, n: int = -1,
                  frac: float = 1.0) -> SRDataset:
     """Decode one dataset split into packed arrays (not staged).
 
     args needs: data_root, splits_root, scale, n_channels, myseed,
     use_interpolated_low, inter_low_th, inter_low_sigma, num_workers,
-    task. The reconstruct task raises (not ported yet, ROADMAP.md)."""
-    if args.get('task') == constants.RECONSTRUCT:
-        raise NotImplementedError(
-            'the reconstruct task: not ported yet (see ROADMAP.md)')
+    task (reconstruct_input under task=reconstruct)."""
     split, scale, _ = constants.parse_caco2_name(ds_name)
     if scale != args['scale']:
         raise ValueError(f'{ds_name}: scale {scale}, the run has '
@@ -152,7 +169,38 @@ def load_dataset(args, ds_name: str, phase: str, n: int = -1,
     if lr.shape[1] * scale != hr.shape[1]:
         raise ValueError(f'{ds_name}: LR {lr.shape} x{scale} is not HR '
                          f'{hr.shape}')
+    if args.get('task') == constants.RECONSTRUCT:
+        return _reconstruct_pair(args, ds_name, phase, hr, lr, ids,
+                                 l_paths, h_paths, lr_is_real)
     return SRDataset(name=ds_name, phase=phase, scale=scale,
                      n_channels=nch, hr=hr, lr=lr, ids=ids,
                      h_paths=h_paths, l_paths=l_paths,
                      lr_is_real=lr_is_real)
+
+
+def _reconstruct_pair(args, ds_name, phase, hr, lr, ids, l_paths, h_paths,
+                      lr_is_real) -> SRDataset:
+    """A split of the reconstruct task, at scale 1. fake (any value but
+    real, as in JAX): the blurred LR -> the LR, the LR's paths on both
+    sides; real: eval only, input = target = the HR downscaled without
+    noise, the HR's paths."""
+    nch = args['n_channels']
+    if str(args.get('reconstruct_input', 'fake')) == 'real':
+        if phase != constants.EVAL_PHASE:
+            raise ValueError(f'{ds_name}: reconstruct_input=real is '
+                             f'eval-only, not {phase}')
+        h_to_l = synth_lr_from_hr(
+            hr, args['scale'], seed=int(args.get('myseed', 0)),
+            inter_low_th=float(args['inter_low_th']),
+            inter_low_sigma=float(args['inter_low_sigma']),
+            simulate_noise=False)
+        return SRDataset(name=ds_name, phase=phase, scale=1, n_channels=nch,
+                         hr=h_to_l, lr=h_to_l, ids=ids, h_paths=h_paths,
+                         l_paths=h_paths, lr_is_real=False)
+    # JAX's order: / 255 inside the chain, then * 255 and round half to
+    # even, which decides the pixels that sit on a half level
+    blurred = np.clip(np.round(blur_true_lr(lr) * 255.0), 0,
+                      255).astype(np.uint8)
+    return SRDataset(name=ds_name, phase=phase, scale=1, n_channels=nch,
+                     hr=lr, lr=blurred, ids=ids, h_paths=l_paths,
+                     l_paths=l_paths, lr_is_real=lr_is_real)

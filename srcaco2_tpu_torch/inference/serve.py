@@ -16,7 +16,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from srcaco2_tpu_torch import resolve_device
+from srcaco2_tpu_torch import exact_f32, resolve_device
 from srcaco2_tpu_torch.ops.resize import resize2d
 from srcaco2_tpu_torch.train import test_modes as TM
 from srcaco2_tpu_torch.train.steps import model_outputs, pre_upsampled
@@ -53,14 +53,8 @@ class SRServer:
         self.in_shape = (self.args['n_channels'], *self.lr_hw)
         netG = self.args['netG']
         self.pre_upsampled = pre_upsampled(netG['net_type'], netG)
-        if self.device.type == 'cuda' and self.model.dtype == torch.float32:
-            # f32 serving computes in full f32, as the JAX package does:
-            # left on, cuDNN would run the f32 convolutions in TF32; and
-            # deterministically (an f32 transposed convolution otherwise
-            # sums with atomics)
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
-            torch.backends.cudnn.deterministic = True
+        if self.model.dtype == torch.float32:
+            exact_f32(self.device)
         t0 = time.perf_counter()
         self._serve(torch.zeros((batch_size, *self.in_shape),
                                 dtype=torch.uint8, device=self.device))

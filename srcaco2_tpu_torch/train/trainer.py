@@ -43,8 +43,16 @@ it, and rank 0's choice holds on every rank (JAX's
 `scratch_root`, the master mirrors the experiment directory there every
 synch_scratch_epoch_freq epochs (utils/cluster.py).
 
-Not ported (it raises at parse time, ROADMAP.md): the reconstruct task.
+The reconstruct task (JAX's trainer.py:112-127) trains at scale 1 on the
+LR grid (data/dataset.py maps the pairs): the net's `<net>_upscale`,
+where it has one, becomes 1 before it is built, so that the saved
+config_model.yml rebuilds the scale-1 net; the pipeline takes scale 1
+and h_size // scale patches, and the `_bicubic` rows the identity (the
+unrestored input). As in JAX, the eval forward keeps the config's scale,
+which only its test modes read, and the metrics' border stays the
+config's scale (train/evaluator.py).
 """
+import dataclasses
 import json
 import os
 import time
@@ -54,8 +62,9 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from srcaco2_tpu_torch import constants, resolve_device
+from srcaco2_tpu_torch import constants, exact_f32, resolve_device
 from srcaco2_tpu_torch.config import yaml_io
+from srcaco2_tpu_torch.config.net_defaults import safe_str_var
 from srcaco2_tpu_torch.data import pipeline as P
 from srcaco2_tpu_torch.data import sampling as SMP
 from srcaco2_tpu_torch.data.dataset import SRDataset, load_dataset, SEP
@@ -132,17 +141,7 @@ class Experiment:
         self.net_type = nt
         self.seed = int(args.get('myseed', 0))
         R.set_seed(self.seed)
-        if dev.type == 'cuda':
-            # f32 computes in true f32, as the JAX package does (the
-            # windowed path's products, the f32 eval twin's convolutions);
-            # bf16 operands are exact in TF32 either way.
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
-            # cuDNN's deterministic algorithms: its default for an f32
-            # transposed convolution sums with atomics, so that two f32
-            # forwards of MSLapSRN or SRFBN differ in the last bits and
-            # `eval` would not reproduce the final test
-            torch.backends.cudnn.deterministic = True
+        exact_f32(dev)
 
         # datasets ---------------------------------------------------
         tr_names = [s for s in str(args['train_dsets']).split(SEP) if s]
@@ -175,6 +174,9 @@ class Experiment:
             for n in str(args['test_dsets']).split(SEP) if n]
 
         # model + loss + optimizer ------------------------------------
+        reconstruct = args.get('task') == constants.RECONSTRUCT
+        if reconstruct and f'{safe_str_var(nt)}_upscale' in args['netG']:
+            args['netG'][f'{safe_str_var(nt)}_upscale'] = 1
         self.model = define_g(args, dev, seed=self.seed)
         # the model's persistent buffers (ENLCN's fixed projections): not
         # trained, but saved and loaded with the parameters
@@ -185,6 +187,10 @@ class Experiment:
         self.master = build_loss(args)
         self.tx = build_optimizer(args['train'])
         self.pipe_cfg = P.from_args(args)
+        if reconstruct:
+            self.pipe_cfg = dataclasses.replace(
+                self.pipe_cfg, scale=1,
+                h_size=int(args['h_size']) // int(args['scale']))
         bs = int(args['batch_size'])
         self.batch_size = bs
         self.steps_per_epoch = max(1, len(self.train_ds) // bs)

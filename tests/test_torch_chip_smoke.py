@@ -76,3 +76,31 @@ def test_entry_opts_turns_every_option_on():
         t for t, _ in cs.OPTION_TERMS} - {'norm_img_grad', 'norm_laplace'}
     assert args['train']['G_regularizer_orthstep'] == 2
     assert args['train']['G_regularizer_clipstep'] == 3
+
+
+def test_entry_reconstruct_is_entry_x8_as_a_reconstruct_run():
+    """entry_reconstruct's flags are entry_x8's plus --task reconstruct,
+    and its floor check's numpy PSNR is ops/metrics' (border crop, the
+    cap for identical images)."""
+    import numpy as np
+    import torch
+    from srcaco2_tpu_torch.config.parser import get_args
+    from srcaco2_tpu_torch.ops.metrics import mb_psnr
+    cs = _chip_smoke()
+    rec, x8 = cs.ENTRY['entry_reconstruct'], cs.ENTRY['entry_x8']
+    flags = list(rec['flags'])
+    i = flags.index('--task')
+    assert flags[i + 1] == 'reconstruct'
+    assert flags[:i] + flags[i + 2:] == x8['flags'] and rec['tools']
+    assert {k: v for k, v in rec.items() if k not in ('flags', 'tools')} \
+        == {k: v for k, v in x8.items() if k != 'flags'}
+    args = get_args(['--net_type', 'SwinIR', '--scale', '8'] + flags)
+    assert args['task'] == 'reconstruct' and args['amp']
+    r = np.random.default_rng(0)
+    e = r.integers(0, 256, (3, 32, 32, 1), dtype=np.uint8)
+    h = np.clip(e.astype(np.int16) + r.integers(-3, 4, e.shape), 0,
+                255).astype(np.uint8)
+    h[2] = e[2]
+    want = mb_psnr(*(torch.from_numpy(a).permute(0, 3, 1, 2).float()
+                     for a in (e, h)), border=8)
+    assert abs(cs.numpy_psnr(e, h, 8) - float(want.mean())) <= 1e-4

@@ -71,8 +71,17 @@ def test_lists_parse_without_pyyaml(monkeypatch):
 
 
 def test_refused_settings_raise(monkeypatch):
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        TPARSE.get_args(['--task', 'reconstruct'])
+    # the port refuses no setting now: the reconstruct task parses as in
+    # JAX (a bad task name is refused by the sanity check)
+    args = TPARSE.get_args(['--task', 'reconstruct'])
+    jargs = JPARSE.get_args(['--task', 'reconstruct'])
+    assert (args['task'], args['reconstruct_type'],
+            args['reconstruct_input']) == (jargs['task'],
+                                           jargs['reconstruct_type'],
+                                           jargs['reconstruct_input']) == (
+        'reconstruct', 'low_res', 'fake')
+    with pytest.raises(ValueError, match='invalid configuration'):
+        TPARSE.get_args(['--task', 'denoise'])
     # distributed and scratch_root parse; with no launcher's variables
     # the world is one process: rank 0 of 1, the master, mesh_data 1
     for var in ('RANK', 'WORLD_SIZE', 'LOCAL_RANK', 'SLURM_PROCID',

@@ -160,6 +160,16 @@ def test_synth_lr_without_noise_matches_jax(synth_root):
 
 
 def test_reconstruct_task_raises(synth_root):
+    """The reconstruct task maps a train split as JAX does (the blurred
+    LR -> the LR at scale 1) and raises only where JAX raises:
+    reconstruct_input=real in a train phase."""
     root, names = synth_root
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        TD.load_dataset(_ds_args(root, task='reconstruct'), names[0], 'train')
+    args = _ds_args(root, task='reconstruct')
+    j = JD.load_dataset(args, names[0], 'train')
+    t = TD.load_dataset(args, names[0], 'train')
+    assert t.scale == j.scale == 1 and t.l_paths == j.l_paths
+    np.testing.assert_array_equal(t.hr, j.hr)
+    np.testing.assert_array_equal(t.lr, j.lr)
+    with pytest.raises(ValueError, match='eval-only'):
+        TD.load_dataset({**args, 'reconstruct_input': 'real'}, names[0],
+                        'train')
