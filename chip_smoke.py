@@ -146,6 +146,25 @@ non-zero:
                 images and their blur chain, batch 64): 5 timed steps,
                 36 K1 + 36 K2 per step, peak memory, the device time of
                 one step by kernel and the busy share
+  diagnosis_check  the diagnosis studies and the reference .pth loader
+                (srcaco2_tpu_torch/diagnosis) on a synthetic x2 set of
+                512^2 HR images: the k-NN restoration of one test image
+                (65,536 queries) against the 3x3 patch dictionary of 16
+                train images; on 1,024 evenly spaced queries the card's
+                neighbours (chunked_knn, in one block and in blocks of
+                100,000 dictionary rows) equal to the CPU's, and the
+                image's atoms there the ones the CPU's neighbours draw;
+                exact-match restoration with the k-NN fallback bit-equal
+                to the CPU on a central 32x32 crop; the Wiener study at
+                the four balances against the CPU (DIAG_TOL); a
+                reference-layout .pth of the x8 flagship
+                (nearest_flagship weights) through eval_pretrained_pth
+                under utils/profiling.trace_window: rows equal to the
+                port's eval of the same weights within 1e-6, 36 K5 per
+                forward and no other kernel, CUDA kernel events in the
+                Chrome trace, device_memory_stats; the same .pth twice
+                in a made-up tree (discover_pth_checkpoints,
+                eval_pth_batch); ms and peak memory of each step
   entry_reconstruct  entry_x8's flags plus --task reconstruct (the blurred
                 LR -> the LR at scale 1, 16x16 LR patches: K1 + K2; 64x64
                 validation / test images: K5); entry_x8's gates; then on
@@ -4199,6 +4218,372 @@ def entry_ddp_vs_x8(keep):
     return rec
 
 
+# -------------------------------------------------- diagnosis_check
+# the reference SwinIR's leaf names (network_swinir.py) of the fused
+# stack's stacked leaves; dense kernels are transposed to torch's (out, in)
+SWIN_REF_LEAF = {
+    'ln1_weight': 'norm1.weight', 'ln1_bias': 'norm1.bias',
+    'rel_pos_table': 'attn.relative_position_bias_table',
+    'qkv_kernel': 'attn.qkv.weight', 'qkv_bias': 'attn.qkv.bias',
+    'proj_kernel': 'attn.proj.weight', 'proj_bias': 'attn.proj.bias',
+    'ln2_weight': 'norm2.weight', 'ln2_bias': 'norm2.bias',
+    'mlp1_kernel': 'mlp.fc1.weight', 'mlp1_bias': 'mlp.fc1.bias',
+    'mlp2_kernel': 'mlp.fc2.weight', 'mlp2_bias': 'mlp.fc2.bias'}
+
+
+def swinir_reference_state(state):
+    """A fused-layout SwinIR state of the port ({name: tensor}) under the
+    reference's names, layouts and order (network_swinir.py:710:
+    conv_first, patch_embed.norm, layers.{s}.residual_group.blocks.{b}.
+    <leaf>, layers.{s}.conv, norm, conv_after_body,
+    conv_before_upsample.0, upsample.{2i} / upsample.0, conv_last), with
+    the buffers a reference checkpoint holds beside them
+    (relative_position_index, the shifted blocks' attn_mask), which the
+    loader drops. CPU tensors."""
+    import re
+    import torch
+    state = {k: v.detach().cpu() for k, v in state.items()}
+    out = {}
+
+    def top(mod, ref):
+        for leaf in ('weight', 'bias'):
+            if f'{mod}.{leaf}' in state:
+                out[f'{ref}.{leaf}'] = state[f'{mod}.{leaf}']
+
+    top('conv_first', 'conv_first')
+    top('patch_norm', 'patch_embed.norm')
+    n_stages = 1 + max(int(re.match(r'stages\.(\d+)\.', k).group(1))
+                       for k in state if k.startswith('stages.'))
+    for si in range(n_stages):
+        pre = f'layers.{si}.residual_group.blocks'
+        depth = state[f'stages.{si}.blocks.qkv_kernel'].shape[0]
+        for b in range(depth):
+            for leaf, ref in SWIN_REF_LEAF.items():
+                v = state[f'stages.{si}.blocks.{leaf}'][b]
+                out[f'{pre}.{b}.{ref}'] = v.t().contiguous() \
+                    if leaf.endswith('_kernel') else v.clone()
+                if leaf == 'rel_pos_table':
+                    n = int(round(v.shape[0] ** 0.5))
+                    out[f'{pre}.{b}.attn.relative_position_index'] = \
+                        torch.zeros((n, n), dtype=torch.long)
+            if b % 2:
+                out[f'{pre}.{b}.attn_mask'] = torch.zeros((4, 64, 64))
+        top(f'stages.{si}.convs.0', f'layers.{si}.conv')
+    top('norm', 'norm')
+    top('conv_after_body', 'conv_after_body')
+    top('conv_before_up', 'conv_before_upsample.0')
+    i = 0
+    while f'upsample.convs.{i}.weight' in state:
+        top(f'upsample.convs.{i}', f'upsample.{2 * i}')
+        i += 1
+    top('upsample.conv', 'upsample.0')
+    top('conv_last', 'conv_last')
+    want = sum(v.shape[0] if '.blocks.' in k else 1
+               for k, v in state.items())
+    if sum(v.is_floating_point() and not k.endswith('attn_mask')
+           for k, v in out.items()) != want:
+        raise KeyError('a SwinIR parameter has no reference name')
+    return out
+
+
+def nearest_flagship(model, gen, trunk=1e-2, noise=1e-3):
+    """Known weights for a pixelshuffle SwinIR (the JAX package's default
+    head, which the .pth loader builds): the seeded weights, with the
+    trunk's branch (conv_after_body) scaled by `trunk` and the head set
+    to copy channel 0 of conv_first's output, the input, through every
+    upsampling step (nearest-neighbour upscaling) plus `noise` times a
+    normal draw on every head weight. Its output is the nearest upscale
+    of the input plus a small, seeded perturbation that runs through
+    every block: a positive SSIM, where random weights can give a
+    negative one, which fast_eval stops on."""
+    import torch
+    with torch.no_grad():
+        model.conv_after_body.weight.mul_(trunk)
+        model.conv_after_body.bias.mul_(trunk)
+        convs = [model.conv_first, model.conv_before_up,
+                 *model.upsample.convs, model.conv_last]
+        for conv in convs:
+            w = conv.weight
+            w.copy_(noise * torch.randn(w.shape, generator=gen))
+            conv.bias.zero_()
+            c = w.shape[-1] // 2
+            outs = range(4) if conv in model.upsample.convs else range(1)
+            for o in outs:
+                w[o, 0, c, c] += 1.0
+    return model
+
+
+# diagnosis_check's sizes: the x2 study set (HR side, train and test
+# images; the dictionary is built from the train images' 3x3 patches),
+# the k-NN queries also run on the CPU (all 65,536 would take ~280 s
+# there: 1,024 took 3.3-4.4 s on the card's host), the dictionary rows
+# per block of the card's blocked run of those queries, the exact-match
+# crop, the x8 .pth set's test images
+DIAG = dict(size=512, n_train=16, n_test=4, knn_cpu_queries=1024,
+            knn_block_rows=100_000, crop=32, pth_n_test=8,
+            wiener_balances=(1e-3, 1e-2, 1e-1, 1.0))
+# the Wiener study, card against CPU (tests/test_torch_restore.py):
+# float output, uint8 off-by-one share, rows relative to max(1, |CPU's|)
+DIAG_TOL = {'wiener_float': 2e-5, 'wiener_u8_off_by_one': 0.01,
+            'wiener_rows': 1e-4, 'pth_rows': 1e-6}
+
+
+def _timed(dev, fn):
+    """fn() with the host-clock ms (synchronised) and the peak memory
+    the call allocated on the card (0 on the CPU)."""
+    import torch
+    cuda = dev.type == 'cuda'
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    out = fn()
+    if cuda:
+        torch.cuda.synchronize()
+    return out, dict(ms=1e3 * (time.perf_counter() - t),
+                     peak_bytes=torch.cuda.max_memory_allocated()
+                     if cuda else 0)
+
+
+def _rows(perf):
+    return {sc: {m: float(v) for m, v in perf[sc].items()}
+            for sc in ('full', 'roi')}
+
+
+def _rows_within(got, want):
+    """The largest |got - want| / max(1, |want|) over the metric rows."""
+    return max(abs(got[sc][m] - want[sc][m]) / max(1.0, abs(want[sc][m]))
+               for sc in want for m in want[sc])
+
+
+def diagnosis_check(dev, smi, tmp, sizes=None):
+    """The diagnosis studies and the reference .pth loader on `dev`:
+    k-NN restoration (diagnosis/knn_patches) of one x2 test image against
+    a dictionary of the train images' 3x3 patches; on an evenly spaced
+    subset of its queries the CPU's neighbours (chunked_knn) equal the
+    card's, in one block and in blocks of knn_block_rows dictionary rows
+    (the merge across blocks), and the restored image holds there the
+    atoms the CPU's neighbours draw; exact-match
+    restoration with the k-NN fallback (diagnosis/patch_dict) on a crop,
+    bit-equal to the CPU; the Wiener study (diagnosis/restore) at the
+    four balances against the CPU; a reference-layout .pth of the x8
+    flagship (known weights: nearest_flagship) evaluated through
+    diagnosis/parity.eval_pretrained_pth, its rows equal to the port's
+    own eval of the same weights, 36 K5 launches per forward and no
+    other kernel, run under utils/profiling's trace_window, whose Chrome
+    trace must hold CUDA kernel events, and device_memory_stats; then
+    discovered and evaluated twice in a made-up tree (eval_pth_batch).
+    Each step's ms and peak memory. Returns (record, ok); rec['gates']
+    names each gate."""
+    import shutil
+    import numpy as np
+    import torch
+    from srcaco2_tpu_torch import constants, resolve_device
+    from srcaco2_tpu_torch.data import folds, io as dio
+    from srcaco2_tpu_torch.data.dataset import load_dataset
+    from srcaco2_tpu_torch.data.synthetic import make_synthetic_dataset
+    from srcaco2_tpu_torch.diagnosis import (knn_patches as K, parity as PA,
+                                             patch_dict as PD, restore as RS)
+    from srcaco2_tpu_torch.models.registry import define_g
+    from srcaco2_tpu_torch.train.evaluator import fast_eval
+    from srcaco2_tpu_torch.train.steps import make_eval_forward
+    from srcaco2_tpu_torch.utils import profiling as PR
+    dev = resolve_device(dev)
+    cfg = dict(DIAG, **(sizes or {}))
+    cpu = torch.device('cpu')
+    rec, gates, steps = {'sizes': cfg}, {}, {}
+    t0 = time.perf_counter()
+
+    # the x2 study set
+    root2 = os.path.join(tmp, 'x2')
+    names = make_synthetic_dataset(root2, scale=2, cell='CELL0',
+                                   n_train=cfg['n_train'], n_val=1,
+                                   n_test=cfg['n_test'], size=cfg['size'])
+    img_root = os.path.join(root2, 'caco2')
+
+    def read(ds):
+        return [(dio.imread_uint(os.path.join(img_root, l), 1)[..., 0],
+                 dio.imread_uint(os.path.join(img_root, h), 1)[..., 0])
+                for l, h in folds.get_pairs(root2, ds)[0]]
+    train, test = read(names[0]), read(names[2])
+    (dictionary, ), steps['build_dict'] = _timed(cpu, lambda: (
+        K.build_dict([K.extract_pairs(l, h, 3) for l, h in train], 3),))
+    li, hi = test[0]
+    rec['knn'] = dict(dict_rows=int(len(dictionary['atoms_l'])),
+                      queries=int(li.size),
+                      max_atoms=int(dictionary['n'].max()))
+    print(f"diagnosis_check: dictionary M = {rec['knn']['dict_rows']}",
+          flush=True)
+
+    # k-NN: the restoration; on a query subset the card's neighbours in
+    # one block and in blocks of knn_block_rows rows against the CPU's
+    # (blocks of 1 GiB there), and the image's atoms at those pixels
+    # against the ones the CPU's neighbours draw (knn_draws, seed 0)
+    img, steps['knn_restore'] = _timed(dev, lambda: K.knn_restore(
+        li, dictionary, k=1, seed=0, device=dev))
+    q, _ = K.extract_pairs(li, np.zeros((2 * li.shape[0], 2 * li.shape[1]),
+                                        li.dtype), 3)
+    sub = np.linspace(0, len(q) - 1, cfg['knn_cpu_queries']).astype(int)
+    ring = K.ring_weights(3).reshape(-1)
+    nbr_cpu, steps['knn_cpu_subset'] = _timed(cpu, lambda: K.chunked_knn(
+        q[sub], dictionary['atoms_l'], ring, device=cpu))
+    nbr_one, steps['knn_card_subset'] = _timed(dev, lambda: K.chunked_knn(
+        q[sub], dictionary['atoms_l'], ring, device=dev))
+    nbr_blk, steps['knn_card_subset_blocks'] = _timed(
+        dev, lambda: K.chunked_knn(q[sub], dictionary['atoms_l'], ring,
+                                   device=dev, rows=cfg['knn_block_rows']))
+    _, u = K.knn_draws(len(q), 1, 0)
+    ent = nbr_cpu[:, 0]
+    probs = torch.as_tensor(dictionary['probs'])[ent]
+    a_i = torch.clamp((u[sub] > probs.double().cumsum(1)).sum(1),
+                      max=probs.shape[1] - 1)
+    want_atoms = np.clip(dictionary['atoms_h'][ent.numpy(), a_i.numpy()],
+                         0, 255).astype(np.uint8)
+    ys, xs = np.divmod(sub, li.shape[1])
+    got_atoms = np.stack([img[2 * y:2 * y + 2, 2 * x:2 * x + 2].reshape(-1)
+                          for y, x in zip(ys, xs)])
+    n_blocks = -(-rec['knn']['dict_rows'] // cfg['knn_block_rows'])
+    rec['knn'].update(
+        cpu_queries=len(sub), card_blocks=n_blocks,
+        indices_equal_cpu=bool(torch.equal(nbr_one.cpu(), nbr_cpu)),
+        blocked_indices_equal_cpu=bool(torch.equal(nbr_blk.cpu(), nbr_cpu)),
+        image_atoms_equal_cpu=bool(np.array_equal(got_atoms, want_atoms)),
+        output_shape=list(img.shape),
+        psnr_db=numpy_psnr(img[None], hi[None], 2))
+    gates['knn_indices_equal_cpu'] = (
+        rec['knn']['indices_equal_cpu']
+        and rec['knn']['blocked_indices_equal_cpu'] and n_blocks > 1
+        and rec['knn']['image_atoms_equal_cpu'] and img.shape == hi.shape)
+
+    # exact match with the k-NN fallback, card against CPU on a central
+    # crop (hits and misses)
+    c, y0, x0 = cfg['crop'], li.shape[0] // 2, li.shape[1] // 2
+    crop = np.ascontiguousarray(li[y0 - c // 2:y0 + c // 2,
+                                   x0 - c // 2:x0 + c // 2])
+    (got, cov), steps['exact_match_crop'] = _timed(
+        dev, lambda: PD.exact_match_restore(crop, dictionary, seed=0,
+                                            device=dev))
+    want, cov_cpu = PD.exact_match_restore(crop, dictionary, seed=0,
+                                           device=cpu)
+    rec['exact_match'] = dict(crop=c, coverage=cov,
+                              equal_cpu=bool(np.array_equal(got, want)))
+    gates['exact_match_equal_cpu'] = rec['exact_match']['equal_cpu'] and \
+        cov == cov_cpu < 1.0
+
+    # the Wiener study, card against CPU
+    bal = cfg['wiener_balances']
+    study, steps['wiener_study'] = _timed(dev, lambda: RS.wiener_study(
+        root2, root2, 2, 'CELL0', balances=bal, device=dev))
+    study_cpu = RS.wiener_study(root2, root2, 2, 'CELL0', balances=bal,
+                                device=cpu)
+    up = torch.from_numpy(li.astype(np.float32) / 255.0)[None, None]
+    w_dev = RS.wiener_filter(up.to(dev), RS.box_psf(5), bal[0]).cpu()
+    w_cpu = RS.wiener_filter(up, RS.box_psf(5), bal[0])
+
+    def u8(x):
+        return torch.round(torch.clip(x, 0, 1) * 255.0)
+    du8 = (u8(w_dev) - u8(w_cpu)).abs()
+    rec['wiener'] = dict(
+        rows={str(k): _rows(v) for k, v in study.items()},
+        rows_rel_err=max(_rows_within(_rows(study[k]), _rows(study_cpu[k]))
+                         for k in study),
+        float_max_abs_err=float((w_dev - w_cpu).abs().max()),
+        u8_off_by_one_share=float((du8 == 1).float().mean()),
+        u8_max_diff=float(du8.max()), tol={
+            k: v for k, v in DIAG_TOL.items() if k.startswith('wiener')})
+    gates['wiener_within_tol'] = (
+        rec['wiener']['rows_rel_err'] <= DIAG_TOL['wiener_rows']
+        and rec['wiener']['float_max_abs_err'] <= DIAG_TOL['wiener_float']
+        and rec['wiener']['u8_max_diff'] <= 1
+        and rec['wiener']['u8_off_by_one_share']
+        <= DIAG_TOL['wiener_u8_off_by_one'])
+
+    # the reference .pth of the x8 flagship
+    root8 = os.path.join(tmp, 'x8')
+    make_synthetic_dataset(root8, scale=8, cell='CELL0', n_train=1, n_val=1,
+                           n_test=cfg['pth_n_test'], size=cfg['size'])
+    args = PA.pth_eval_args('SwinIR', 8, root8, root8, dev)
+    model = nearest_flagship(define_g(args, dev, seed=0),
+                             torch.Generator().manual_seed(1))
+    state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    pth = os.path.join(tmp, 'G-model.pth')
+    torch.save(swinir_reference_state(state), pth)
+    # traced (utils/profiling)
+    reset_launches()
+    (perf, prof), steps['eval_pretrained_pth_traced'] = _timed(
+        dev, lambda: _traced(
+            PR, os.path.join(tmp, 'trace'), lambda: PA.eval_pretrained_pth(
+                pth, 'SwinIR', 8, 'CELL0', root8, root8, device=dev)))
+    launches = read_launches()
+    events = json.load(open(prof.trace_file))['traceEvents']
+    kernels = [e for e in events if e.get('cat') == 'kernel']
+    mem = PR.device_memory_stats()
+    # the port's own eval of the same weights
+    ds = load_dataset(args, constants.caco2_name(
+        constants.TESTSET, 8, 'CELL0'), constants.EVAL_PHASE)
+    fwd = make_eval_forward(model, 'SwinIR', 8, netG=args['netG'])
+    own = fast_eval(fwd, None, ds, args, 8, constants.TESTSET)
+    forwards = -(-cfg['pth_n_test'] // 8)
+    blocks = sum(args['netG']['swinir_depths'])
+    # two checkpoints in a made-up shared-trained-models tree
+    tree = os.path.join(tmp, 'shared-trained-models')
+    for i in range(2):
+        d = os.path.join(tree, 'super-resolution', 'SwinIR',
+                         'caco2_train_X_8_in_64_out_512_cell_CELL0',
+                         f'id_{i}-tsk_super-resolution-x_8-netG_SwinIR'
+                         '-sd_0', 'best-models')
+        os.makedirs(d)
+        shutil.copy(pth, os.path.join(d, 'G-model.pth'))
+    found = PA.discover_pth_checkpoints(tree)
+    results = {}
+    batch, steps['eval_pth_batch'] = _timed(dev, lambda: PA.eval_pth_batch(
+        tree, root8, root8, results, device=dev))
+    batch_rows = results.get(8, {}).get('methods', {}).get(
+        'SwinIR (ported .pth)', {}).get('CELL0')
+    rec['pth'] = dict(
+        model='SwinIR x8 pixelshuffle C=180 6x6 heads 6 ws 8 f32 (the '
+        "loader's default config), nearest_flagship weights",
+        n_test=cfg['pth_n_test'], rows=_rows(perf), own_eval_rows=_rows(own),
+        rows_rel_err=_rows_within(_rows(perf), _rows(own)),
+        launches=launches, forwards=forwards, blocks=blocks,
+        discovered=len(found), batch_ok=batch['n_ok'],
+        batch_failures=batch['failures'],
+        batch_rows_rel_err=_rows_within(_rows(batch_rows), _rows(own))
+        if batch_rows else None)
+    rec['profiling'] = dict(
+        trace_bytes=os.path.getsize(prof.trace_file),
+        cuda_kernel_events=len(kernels),
+        k5_events=sum('swin_block' in e.get('name', '') for e in kernels),
+        memory_stats_devices=sorted(mem),
+        peak_allocated_bytes=max((m.get('allocated_bytes.all.peak', 0)
+                                  for m in mem.values()), default=0))
+    gates['pth_rows_equal_eval'] = (
+        rec['pth']['rows_rel_err'] <= DIAG_TOL['pth_rows']
+        and perf['full'][constants.PSNR_MTR] > 0)
+    gates['k5_launches'] = (
+        launches['grouped'] == blocks * forwards
+        and all(v == 0 for k, v in launches.items() if k != 'grouped'))
+    gates['pth_batch'] = (len(found) == 2 and batch['n_ok'] == 2
+                          and not batch['failures']
+                          and rec['pth']['batch_rows_rel_err'] is not None
+                          and rec['pth']['batch_rows_rel_err']
+                          <= DIAG_TOL['pth_rows'])
+    gates['trace_has_cuda_kernels'] = (dev.type != 'cuda'
+                                       or len(kernels) > 0)
+    gates['device_memory_stats'] = (dev.type != 'cuda' or (
+        f'cuda:{dev.index or 0}' in mem
+        and rec['profiling']['peak_allocated_bytes'] > 0))
+    rec.update(steps=steps, gates=gates,
+               phase_seconds=time.perf_counter() - t0, nvidia_smi=smi)
+    return rec, all(gates.values())
+
+
+def _traced(PR, logdir, fn):
+    with PR.trace_window(logdir) as prof:
+        out = fn()
+    return out, prof
+
+
 def flagship_args():
     from srcaco2_tpu_torch.config.net_defaults import init_net_g
     args = {'scale': SCALE, 'n_channels': 1, 'h_size': H_SIZE, 'amp': True}
@@ -4493,11 +4878,18 @@ def main() -> int:
         print('chip_smoke: reconstruct_profile failed', file=sys.stderr)
         return 1
     torch.cuda.empty_cache()
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix='diagnosis_') as tmp:
+        diag, ok = diagnosis_check(dev, smi, tmp)
+    diag = emit('diagnosis_check', **diag)
+    if not ok:
+        print('chip_smoke: diagnosis_check failed', file=sys.stderr)
+        return 1
+    torch.cuda.empty_cache()
     # the entry runs are processes of their own, each far from the
     # card's memory (5.6 GB reserved at x8, 17.7 at x2, on an NVIDIA H100
     # 80GB HBM3 at 700 W), so they run at the same time
     import shutil
-    import tempfile
     from concurrent.futures import ThreadPoolExecutor
     keep = tempfile.mkdtemp(prefix='entry_params_')
     try:
@@ -4623,6 +5015,7 @@ def main() -> int:
                        'windowed_profile': wprof, 'options_check': opts,
                        'ddp_check': ddp, 'native_check': native,
                        'reconstruct_profile': recon,
+                       'diagnosis_check': diag,
                        **entries, **zoo,
                        'kernels': kernels}, f, indent=1)
     print(json.dumps({'kernels': kernels}))

@@ -42,6 +42,7 @@ setup(
     install_requires=['jax', 'flax', 'optax', 'orbax-checkpoint',
                       'numpy', 'pyyaml'],
     package_data={'srcaco2_tpu.native': ['*.cpp'],
-                  'srcaco2_tpu_torch.ops': ['csrc/*.cu', 'csrc/*.cuh']},
+                  'srcaco2_tpu_torch.ops': ['csrc/*.cu', 'csrc/*.cuh'],
+                  'srcaco2_tpu_torch.diagnosis': ['folds_manifest.yaml']},
     cmdclass={'build_py': BuildWithNative},
 )

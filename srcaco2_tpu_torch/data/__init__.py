@@ -1,1 +1,3 @@
-"""Data transforms of the port."""
+"""Data: fold files, image IO, the staged datasets, the in-step pipeline,
+sampling, the synthetic dataset, the dataset builders from raw sessions
+and the CSR-CNN noise augmenter."""

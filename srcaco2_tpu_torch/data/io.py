@@ -2,9 +2,10 @@
 
 With cv2 (where it imports), the JAX package's behaviour: tif read as
 is, grayscale kept as one channel, BGR -> RGB for color. Without cv2,
-a small numpy codec: 8-bit (or 16-bit, scaled down as the JAX package
-scales it) grayscale and RGB baseline TIFF without compression is read
-and written, and PNG is written with zlib. A compressed TIFF, or any
+a small numpy codec: 8- or 16-bit grayscale and RGB baseline TIFF
+without compression is read and written (imread_uint scales 16 bits
+down as the JAX package does, imread_unchanged keeps them), and PNG is
+written with zlib. A compressed TIFF, or any
 other format, raises an error that names cv2. A machine without cv2
 writes and reads the synthetic dataset through this codec.
 """
@@ -30,24 +31,25 @@ _TYPE_FMT = {1: 'B', 3: 'H', 4: 'I'}
 
 
 def write_tiff(path: str, img: np.ndarray) -> None:
-    """img: (H, W) or (H, W, 3) uint8 -> an uncompressed baseline TIFF
-    (little-endian, one strip)."""
+    """img: (H, W) or (H, W, 3) uint8 or uint16 -> an uncompressed
+    baseline TIFF (little-endian, one strip)."""
     img = np.ascontiguousarray(img)
-    if img.dtype != np.uint8 or img.ndim not in (2, 3) or \
-            (img.ndim == 3 and img.shape[2] != 3):
-        raise ValueError(f'write_tiff: (H, W) or (H, W, 3) uint8, got '
-                         f'{img.dtype} {img.shape}')
+    if img.dtype not in (np.uint8, np.uint16) or img.ndim not in (2, 3) \
+            or (img.ndim == 3 and img.shape[2] != 3):
+        raise ValueError(f'write_tiff: (H, W) or (H, W, 3) uint8 or '
+                         f'uint16, got {img.dtype} {img.shape}')
     h, w = img.shape[:2]
     spp = 1 if img.ndim == 2 else 3
-    data = img.tobytes()
+    bps = 8 * img.dtype.itemsize
+    data = img.astype(img.dtype.newbyteorder('<')).tobytes()
     data_off = 8
     bps_off = data_off + len(data)
-    extra = struct.pack('<3H', 8, 8, 8) if spp == 3 else b''
+    extra = struct.pack('<3H', bps, bps, bps) if spp == 3 else b''
     ifd_off = bps_off + len(extra)
     ifd_off += ifd_off % 2
     # (tag, type, count, value): SHORT = 3, LONG = 4
     entries = [(256, 4, 1, w), (257, 4, 1, h),
-               (258, 3, spp, bps_off if spp == 3 else 8),
+               (258, 3, spp, bps_off if spp == 3 else bps),
                (259, 3, 1, 1), (262, 3, 1, 1 if spp == 1 else 2),
                (273, 4, 1, data_off), (277, 3, 1, spp), (278, 4, 1, h),
                (279, 4, 1, len(data)), (284, 3, 1, 1)]
@@ -161,6 +163,37 @@ def imread_uint(path: str, n_channels: int = 1) -> np.ndarray:
     return img
 
 
+def imread_unchanged(path: str, n_channels: int = 3) -> np.ndarray:
+    """Read an image as HWC with exactly n_channels (1 or 3), RGB, in the
+    dtype it is stored in (uint8 or uint16), as cv2's IMREAD_UNCHANGED
+    reads it: imread_uint without its scaling to uint8."""
+    if n_channels not in (1, 3):
+        raise ValueError(f'n_channels {n_channels}')
+    return _read(path, n_channels)
+
+
+def imsave_unchanged(img: np.ndarray, path: str):
+    """Save an HW / HWC (RGB) uint8 or uint16 image in its own dtype, as
+    cv2.imwrite does (imsave rounds to uint8); without cv2, TIFF only."""
+    img = np.asarray(img)
+    if img.dtype not in (np.uint8, np.uint16):
+        raise ValueError(f'imsave_unchanged: uint8 or uint16, got '
+                         f'{img.dtype}')
+    if img.ndim == 3 and img.shape[2] == 1:
+        img = img[:, :, 0]
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    if cv2 is not None:
+        if img.ndim == 3:
+            img = cv2.cvtColor(img, cv2.COLOR_RGB2BGR)
+        if not cv2.imwrite(path, img):
+            raise OSError(f'cv2 could not write {path}')
+        return
+    if os.path.splitext(path)[1].lower() not in ('.tif', '.tiff'):
+        raise ValueError(f'{path}: only .tif is written in its own dtype '
+                         f'without cv2')
+    write_tiff(path, img)
+
+
 def imsave(img: np.ndarray, path: str):
     """Save an HW / HWC uint8 (or [0, 255] float) image as png / tif."""
     img = np.asarray(img)
@@ -197,3 +230,24 @@ def read_image_stack(paths: List[str], n_channels: int = 1,
     if len(shapes) != 1:
         raise ValueError(f'inhomogeneous image sizes: {shapes}')
     return np.stack(imgs)
+
+
+def cv2_resize_cubic_uint8(img: np.ndarray, out_wh) -> np.ndarray:
+    """cv2 INTER_CUBIC resize of a uint8 HWC (or HW) image to (w, h),
+    keeping a channel axis (reference: _resize_low_to_scale,
+    dataset_dpsr.py:659). Without cv2, the port's torch bicubic
+    (ops/resize.resize2d, a = -0.75) on the CPU, rounded and clipped."""
+    if cv2 is not None:
+        out = cv2.resize(img, dsize=tuple(out_wh),
+                         interpolation=cv2.INTER_CUBIC)
+    else:
+        import torch
+        from srcaco2_tpu_torch.ops.resize import resize2d
+        a = img if img.ndim == 3 else img[:, :, None]
+        x = torch.from_numpy(np.ascontiguousarray(
+            a.astype(np.float32).transpose(2, 0, 1)))
+        out = resize2d(x, (out_wh[1], out_wh[0])).numpy().transpose(1, 2, 0)
+        out = np.clip(np.round(out), 0, 255).astype(img.dtype)
+    if out.ndim == 2:
+        out = out[:, :, None]
+    return out

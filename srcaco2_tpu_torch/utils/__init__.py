@@ -1,1 +1,2 @@
-"""Logging, the metric tracker and the random-draw scheme."""
+"""Logging, the metric tracker, the random-draw scheme, the cluster
+helpers, profiling hooks and the reference's image helpers."""
