@@ -162,7 +162,7 @@ non-zero:
                 under utils/profiling.trace_window: rows equal to the
                 port's eval of the same weights within 1e-6, 36 K5 per
                 forward and no other kernel, CUDA kernel events in the
-                Chrome trace, device_memory_stats; the same .pth twice
+                Chrome trace, the card's peak memory; the same .pth twice
                 in a made-up tree (discover_pth_checkpoints,
                 eval_pth_batch); ms and peak memory of each step
   entry_reconstruct  entry_x8's flags plus --task reconstruct (the blurred
@@ -4371,7 +4371,7 @@ def diagnosis_check(dev, smi, tmp, sizes=None):
     diagnosis/parity.eval_pretrained_pth, its rows equal to the port's
     own eval of the same weights, 36 K5 launches per forward and no
     other kernel, run under utils/profiling's trace_window, whose Chrome
-    trace must hold CUDA kernel events, and device_memory_stats; then
+    trace must hold CUDA kernel events, and the card's peak memory; then
     discovered and evaluated twice in a made-up tree (eval_pth_batch).
     Each step's ms and peak memory. Returns (record, ok); rec['gates']
     names each gate."""
@@ -4517,7 +4517,8 @@ def diagnosis_check(dev, smi, tmp, sizes=None):
     launches = read_launches()
     events = json.load(open(prof.trace_file))['traceEvents']
     kernels = [e for e in events if e.get('cat') == 'kernel']
-    mem = PR.device_memory_stats()
+    peak = (torch.cuda.max_memory_allocated(dev) if dev.type == 'cuda'
+            else 0)
     # the port's own eval of the same weights
     ds = load_dataset(args, constants.caco2_name(
         constants.TESTSET, 8, 'CELL0'), constants.EVAL_PHASE)
@@ -4554,9 +4555,7 @@ def diagnosis_check(dev, smi, tmp, sizes=None):
         trace_bytes=os.path.getsize(prof.trace_file),
         cuda_kernel_events=len(kernels),
         k5_events=sum('swin_block' in e.get('name', '') for e in kernels),
-        memory_stats_devices=sorted(mem),
-        peak_allocated_bytes=max((m.get('allocated_bytes.all.peak', 0)
-                                  for m in mem.values()), default=0))
+        peak_allocated_bytes=peak)
     gates['pth_rows_equal_eval'] = (
         rec['pth']['rows_rel_err'] <= DIAG_TOL['pth_rows']
         and perf['full'][constants.PSNR_MTR] > 0)
@@ -4570,9 +4569,7 @@ def diagnosis_check(dev, smi, tmp, sizes=None):
                           <= DIAG_TOL['pth_rows'])
     gates['trace_has_cuda_kernels'] = (dev.type != 'cuda'
                                        or len(kernels) > 0)
-    gates['device_memory_stats'] = (dev.type != 'cuda' or (
-        f'cuda:{dev.index or 0}' in mem
-        and rec['profiling']['peak_allocated_bytes'] > 0))
+    gates['peak_memory'] = dev.type != 'cuda' or peak > 0
     rec.update(steps=steps, gates=gates,
                phase_seconds=time.perf_counter() - t0, nvidia_smi=smi)
     return rec, all(gates.values())

@@ -20,6 +20,7 @@ from srcaco2_tpu_torch import exact_f32, resolve_device
 from srcaco2_tpu_torch.ops.resize import resize2d
 from srcaco2_tpu_torch.train import test_modes as TM
 from srcaco2_tpu_torch.train.steps import model_outputs, pre_upsampled
+from srcaco2_tpu_torch.utils.profiling import count, span
 
 
 class SRServer:
@@ -83,22 +84,34 @@ class SRServer:
 
     def __call__(self, lr_u8: np.ndarray) -> np.ndarray:
         """lr_u8: (N, C, h, w) uint8, any N: batched at the server's
-        batch size, the tail padded internally."""
-        if lr_u8.dtype != np.uint8 or lr_u8.shape[1:] != self.in_shape:
-            raise ValueError(f'expected (N, *{self.in_shape}) uint8, got '
-                             f'{lr_u8.shape} {lr_u8.dtype}')
-        bs = self.batch_size
-        outs = []
-        for i in range(0, lr_u8.shape[0], bs):
-            chunk = lr_u8[i:i + bs]
-            pad = bs - chunk.shape[0]
-            if pad:
-                chunk = np.concatenate(
-                    [chunk, np.repeat(chunk[-1:], pad, 0)], 0)
-            out = self._serve(torch.from_numpy(chunk).to(self.device))
-            out = out.cpu().numpy()
-            outs.append(out[:bs - pad] if pad else out)
-        return np.concatenate(outs, 0)
+        batch size, the tail padded internally.
+
+        While a profiler records, the call is the span `serve.request`,
+        each batch's enqueue `serve.forward` and its blocking copy to the
+        host `serve.fetch` (utils/profiling); the counters
+        `serve.images` and `serve.slots` add each batch's images and its
+        slots, padding included."""
+        with span('serve.request'):
+            if lr_u8.dtype != np.uint8 or lr_u8.shape[1:] != self.in_shape:
+                raise ValueError(f'expected (N, *{self.in_shape}) uint8, '
+                                 f'got {lr_u8.shape} {lr_u8.dtype}')
+            bs = self.batch_size
+            outs = []
+            for i in range(0, lr_u8.shape[0], bs):
+                chunk = lr_u8[i:i + bs]
+                pad = bs - chunk.shape[0]
+                count('serve.images', bs - pad)
+                count('serve.slots', bs)
+                if pad:
+                    chunk = np.concatenate(
+                        [chunk, np.repeat(chunk[-1:], pad, 0)], 0)
+                x = torch.from_numpy(chunk).to(self.device)
+                with span('serve.forward'):
+                    out = self._serve(x)
+                with span('serve.fetch'):
+                    out = out.cpu().numpy()
+                    outs.append(out[:bs - pad] if pad else out)
+            return np.concatenate(outs, 0)
 
     def throughput(self, iters: int = 10) -> float:
         """Measured images/s at the server's batch size (device-resident

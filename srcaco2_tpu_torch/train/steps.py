@@ -13,6 +13,13 @@ Under data parallelism (`grid`, parallel/mesh.py) each rank takes its
 rows of the global batch and draws; the grads are averaged over the
 ranks between the backward and the finite check, and the loss holder
 with them, so that every rank skips, updates and flags alike.
+
+Each phase is a span of utils/profiling, recorded only while a profiler
+records: `train.step` (one update), and inside it `train.assemble`,
+`train.forward` (the model and the loss), `train.backward`,
+`train.checks` (twice: the finite check of the loss and grads with the
+mask it drives, and the corruption check of the new parameters) and
+`train.optimizer` (the optimizer chain, the masked update and the EMA).
 """
 from typing import Callable
 
@@ -24,6 +31,7 @@ from srcaco2_tpu_torch.losses.master import MasterLoss
 from srcaco2_tpu_torch.ops.resize import resize2d
 from srcaco2_tpu_torch.parallel import mesh
 from srcaco2_tpu_torch.train.state import TrainState, all_finite, ema_update
+from srcaco2_tpu_torch.utils.profiling import span
 
 
 def model_outputs(raw) -> dict:
@@ -101,20 +109,22 @@ def loss_and_grads(model, master: MasterLoss, net_type: str, params: dict,
     lsh_generator; JAX's 'lsh' rng stream)."""
     model.train()
     x = net_input(net_type, batch, netG)
-    if hasattr(model, 'lsh_generator'):
-        model.lsh_generator = lsh
-    try:
-        outputs = model_outputs(model(x))
-    finally:
+    with span('train.forward'):
         if hasattr(model, 'lsh_generator'):
-            model.lsh_generator = None
-    total, holder = compute_model_loss(net_type, master, outputs, batch,
-                                       params, epoch, elb_t)
+            model.lsh_generator = lsh
+        try:
+            outputs = model_outputs(model(x))
+        finally:
+            if hasattr(model, 'lsh_generator'):
+                model.lsh_generator = None
+        total, holder = compute_model_loss(net_type, master, outputs, batch,
+                                           params, epoch, elb_t)
     names = list(params)
-    grads = torch.autograd.grad(total, [params[k] for k in names],
-                                allow_unused=True)
-    grads = {k: torch.zeros_like(params[k]) if g is None else g
-             for k, g in zip(names, grads)}
+    with span('train.backward'):
+        grads = torch.autograd.grad(total, [params[k] for k in names],
+                                    allow_unused=True)
+        grads = {k: torch.zeros_like(params[k]) if g is None else g
+                 for k, g in zip(names, grads)}
     return total.detach(), holder, outputs['out'].detach(), grads
 
 
@@ -154,43 +164,50 @@ def make_train_step(model, master: MasterLoss, tx, net_type: str,
         master.sum_scale = float(grid.data)
 
     def step_fn(state: TrainState, hr_u8, lr_u8, idxs, draws):
-        epoch = torch.div(state.step, steps_per_epoch,
-                          rounding_mode='floor')
-        batch = P.assemble(hr_u8, lr_u8, idxs, draws, pipe_cfg, ppiw_table)
-        loss, holder, pred, grads = loss_and_grads(
-            model, master, net_type, state.params, batch, epoch,
-            state.elb_t, netG, lsh=draws.lsh)
-        with torch.no_grad():
-            pred_bad = ~torch.isfinite(pred).all()
-            if grid is not None:
-                grads = grid.all_reduce_grads(grads)
-                names = list(holder)
-                vals = grid.all_reduce_sum(torch.stack(
-                    [holder[k].detach().float() for k in names]
-                    + [pred_bad.float()]))
-                holder = {k: vals[i] / grid.world
-                          for i, k in enumerate(names)}
-                loss, pred_bad = holder['total'], vals[-1] > 0
-            # non-finite loss or grads -> skip the update
-            ok = torch.isfinite(loss) & all_finite(grads)
-            safe = {k: torch.where(ok, g, torch.zeros_like(g))
-                    for k, g in grads.items()}
-            updates, state.opt_state = tx.update(safe, state.opt_state,
-                                                 state.params)
-            for k, p in state.params.items():
-                p.copy_(torch.where(ok, p + updates[k], p))
-            if e_decay > 0 and state.ema_params is not None:
-                new_ema = ema_update(state.ema_params, state.params,
-                                     e_decay)
-                for k, e in state.ema_params.items():
-                    e.copy_(new_ema[k])
-            corrupt = ~all_finite(state.params) | pred_bad
-            holder = {k: v.detach() for k, v in holder.items()}
-            holder['_skipped'] = (~ok).float()
-            holder['_corrupt'] = corrupt.float()
-            holder['_flags'] = holder['_skipped'] + 2.0 * holder['_corrupt']
-            state.step = state.step + 1
-        return state, holder, ok & ~corrupt
+        with span('train.step'):
+            epoch = torch.div(state.step, steps_per_epoch,
+                              rounding_mode='floor')
+            with span('train.assemble'):
+                batch = P.assemble(hr_u8, lr_u8, idxs, draws, pipe_cfg,
+                                   ppiw_table)
+            loss, holder, pred, grads = loss_and_grads(
+                model, master, net_type, state.params, batch, epoch,
+                state.elb_t, netG, lsh=draws.lsh)
+            with torch.no_grad():
+                pred_bad = ~torch.isfinite(pred).all()
+                if grid is not None:
+                    grads = grid.all_reduce_grads(grads)
+                    names = list(holder)
+                    vals = grid.all_reduce_sum(torch.stack(
+                        [holder[k].detach().float() for k in names]
+                        + [pred_bad.float()]))
+                    holder = {k: vals[i] / grid.world
+                              for i, k in enumerate(names)}
+                    loss, pred_bad = holder['total'], vals[-1] > 0
+                # non-finite loss or grads -> skip the update
+                with span('train.checks'):
+                    ok = torch.isfinite(loss) & all_finite(grads)
+                    safe = {k: torch.where(ok, g, torch.zeros_like(g))
+                            for k, g in grads.items()}
+                with span('train.optimizer'):
+                    updates, state.opt_state = tx.update(
+                        safe, state.opt_state, state.params)
+                    for k, p in state.params.items():
+                        p.copy_(torch.where(ok, p + updates[k], p))
+                    if e_decay > 0 and state.ema_params is not None:
+                        new_ema = ema_update(state.ema_params, state.params,
+                                             e_decay)
+                        for k, e in state.ema_params.items():
+                            e.copy_(new_ema[k])
+                with span('train.checks'):
+                    corrupt = ~all_finite(state.params) | pred_bad
+                holder = {k: v.detach() for k, v in holder.items()}
+                holder['_skipped'] = (~ok).float()
+                holder['_corrupt'] = corrupt.float()
+                holder['_flags'] = (holder['_skipped']
+                                    + 2.0 * holder['_corrupt'])
+                state.step = state.step + 1
+            return state, holder, ok & ~corrupt
 
     if grid is not None:
         step_fn = mesh.shard_train_step(step_fn, grid)

@@ -58,17 +58,11 @@ def test_image_utils_equal_jax():
 
 # ------------------------------------------------------------ profiling
 def test_profiling_hooks(tmp_path):
-    t = TP.StepTimer(warmup=1)
-    for _ in range(5):
-        t.tick()
-    assert t.n == 4 and t.mean > 0 and 'steps=4' in t.summary(batch_size=4)
-    assert TP.device_memory_stats() == ({} if not torch.cuda.is_available()
-                                        else TP.device_memory_stats())
     with TP.trace_window(str(tmp_path / 'off'), enabled=False) as p:
         assert p is None
     assert not (tmp_path / 'off').exists()
     with TP.trace_window(str(tmp_path / 'tr')) as prof:
-        with TP.annotate('my_span'):
+        with TP.span('my_span'):
             torch.ones(64, 64).matmul(torch.ones(64, 64))
     events = json.load(open(prof.trace_file))['traceEvents']
     assert os.path.dirname(prof.trace_file) == str(tmp_path / 'tr')
