@@ -71,8 +71,17 @@ non-zero:
   train         the flagship train step (bf16 over f32 params, random
                 seeded weights, full depth) at batch 128 of 16x16 LR
                 patches: warm-up, 10 timed steps, launch counts (36 K1, 36
-                K2, 0 K5 per step), ms/step, patches/s, peak memory, loss,
-                skip / corrupt flags
+                K2, 0 K5, one update check and one update launch per
+                step), ms/step, patches/s, peak memory, loss, skip /
+                corrupt flags
+  update_pass   the train step's update pass (csrc/fused_update.cu)
+                against the eager chain it replaces, on the trained
+                flagship's f32 parameters, Adam state and its own grads at
+                batch 128: three steps, the second skipped for a NaN grad;
+                parameters, moments, counts and flags bit for bit; the
+                device ms of the check and the update launch
+                (torch.profiler) beside the bound by bytes, and the eager
+                chain's device ms
   train_profile device time of one train step by kernel (torch.profiler)
   train_pair    the train step with every stack's `pair` on (what
                 SRCACO2_SWIN_PAIR=1 selects): warm-up, 10 timed steps,
@@ -88,7 +97,8 @@ non-zero:
                 forward at 40x40 LR; no kernel launches on these paths
   windowed_profile  that config's train step (f32, batch 8 of 48x48 LR)
                 in this process: ms/step over 5 steps, peak memory, no
-                kernel launch, the device time of one step by kernel
+                K1-K6 launch (the update pass's only), the device time of
+                one step by kernel
   entry_x8      `python -m srcaco2_tpu_torch.main` with the README's flags
                 (x8, batch 64, amp, pixelshuffledirect, l2 + 5 SSIM(19),
                 ROI eval and selection) on a synthetic dataset (128 / 8 /
@@ -97,6 +107,7 @@ non-zero:
                 checkpoint step, best model, tracker rows, eval equal to
                 the final test, 36 K1 + 36 K2 per step and 36 K5 per
                 validation / test forward (run_stats.json), nothing else
+                but the update pass's launches in each train step
   options_check the training options that are off by default, card
                 against the port's CPU path in f32 with TF32 off: each
                 of the 13 other loss terms (each hist / kde metric),
@@ -937,7 +948,7 @@ def train_setup(dev):
                            steps_per_epoch=1000)
     hr, lr, gen = train_data(dev)
     return dict(model=model, state=state, step=step, hr=hr, lr=lr, gen=gen,
-                cfg=cfg, master=master, args=args)
+                cfg=cfg, master=master, args=args, tx=tx)
 
 
 def block_stacks(model, pair=None):
@@ -967,6 +978,26 @@ def reset_launches():
 def read_launches():
     from srcaco2_tpu_torch.ops.launches import launch_counts
     return launch_counts()
+
+
+# the train step's update pass (ops/fused_update.py): its check and
+# update launches
+UPDATE_KERNELS = ('update_check', 'update_apply')
+
+
+def swin_launches(launches):
+    """The launch counts of K1-K6 alone."""
+    return {k: v for k, v in launches.items() if k not in UPDATE_KERNELS}
+
+
+def update_launched(launches, steps, tables=None):
+    """Each of `steps` train steps took the update pass: as many check
+    launches as update launches, `tables` of each a step (the leaf
+    table's launches; any whole number where None)."""
+    n = launches['update_check']
+    if n != launches['update_apply'] or steps <= 0:
+        return False
+    return n == tables * steps if tables else n >= steps and n % steps == 0
 
 
 def train_phase(ctx, smi, steps=10, pair=False):
@@ -1018,7 +1049,133 @@ def train_phase(ctx, smi, steps=10, pair=False):
           and launches['bwd'] == per_block
           and launches['pair_fwd'] == per_pair
           and launches['pair_bwd'] == per_pair
-          and launches['grouped'] == 0 and launches['wmsa'] == 0)
+          and launches['grouped'] == 0 and launches['wmsa'] == 0
+          and update_launched(launches, steps, tables=1))
+    return rec, ok
+
+
+def _clone_tree(x):
+    return x.clone() if hasattr(x, 'clone') else {
+        k: _clone_tree(v) for k, v in x.items()}
+
+
+def _kernel_device_ms(fn, names):
+    """{name: (device ms, launches)} of the kernels whose names hold each
+    of `names`, over one call of fn (torch.profiler, the device alone)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    out = {n: (sum(e.self_device_time_total for e in rows if n in e.key)
+               / 1e3, sum(e.count for e in rows if n in e.key))
+           for n in names}
+    out['all'] = (sum(e.self_device_time_total for e in rows) / 1e3,
+                  sum(e.count for e in rows))
+    return out
+
+
+def update_pass_check(ctx, smi, steps=3, nan_step=1, reps=20):
+    """The update pass against the eager chain (train/steps.py:
+    _eager_update, with the eager finite checks) from two copies of the
+    flagship's trained state (f32 parameters, Adam with L2 decay, its
+    moments and counts), over `steps` steps on the step's own grads at
+    batch TRAIN_B (the convolutions' grads channels-last, as autograd
+    returns them), step `nan_step` with a NaN in one grad: every
+    parameter, moment and count, and the ok / corrupt flags, bit for
+    bit. Then the device ms of each launch over `reps` steps of the pass
+    beside its bound by bytes, and the eager chain's device ms of one
+    step. Returns (record, ok)."""
+    import torch
+    from srcaco2_tpu_torch.data import pipeline as P
+    from srcaco2_tpu_torch.ops import fused_update as FU
+    from srcaco2_tpu_torch.train.state import TrainState, all_finite
+    from srcaco2_tpu_torch.train.steps import _eager_update, loss_and_grads
+    model, state, tx = ctx['model'], ctx['state'], ctx['tx']
+    idxs, draws = step_inputs(ctx['gen'], ctx['cfg'], TRAIN_B)
+    batch = P.assemble(ctx['hr'], ctx['lr'], idxs, draws, ctx['cfg'])
+    loss, _, _, grads = loss_and_grads(
+        model, ctx['master'], 'SwinIR', state.params, batch,
+        torch.zeros((), dtype=torch.int32, device=idxs.device), state.elb_t)
+    bad_grads = dict(grads)
+    first = next(iter(bad_grads))
+    bad_grads[first] = grads[first].clone()
+    bad_grads[first].view(-1)[0] = float('nan')
+
+    def copy():
+        return TrainState(step=state.step.clone(),
+                          params=_clone_tree(state.params),
+                          opt_state=_clone_tree(state.opt_state),
+                          elb_t=state.elb_t.clone())
+
+    def leaves(st):
+        out = {f'p.{k}': v for k, v in st.params.items()}
+        for group, sub in st.opt_state.items():
+            for f, v in sub.items():
+                if torch.is_tensor(v):
+                    out[f'{group}.{f}'] = v
+                else:
+                    out.update({f'{group}.{f}.{k}': t
+                                for k, t in v.items()})
+        return out
+
+    def eager_step(st, g):
+        ok = torch.isfinite(loss) & all_finite(g)
+        safe = {k: torch.where(ok, x, torch.zeros_like(x))
+                for k, x in g.items()}
+        _eager_update(tx, st, safe, ok, 0.0)
+        return ok, ~all_finite(st.params)
+
+    eager, fused = copy(), copy()
+    fu = FU.FusedUpdate(tx.options)
+    mismatched, flags_ok = [], True
+    for i in range(steps):
+        g = bad_grads if i == nan_step else grads
+        ok, bad = eager_step(eager, g)
+        flags = fu.begin(loss, g, fused)
+        fu.apply()
+        flags_ok = flags_ok and (
+            (bool(flags[0]), bool(flags[1]), bool(ok), bool(bad))
+            == (i != nan_step, False, i != nan_step, False))
+        want, got = leaves(eager), leaves(fused)
+        mismatched += [f'{i}:{k}' for k, w in want.items()
+                       if not torch.equal(got[k], w)]
+    n = sum(p.numel() for p in state.params.values())
+    n_state = {FU.PLAIN: 0, FU.ADAM: 2, FU.AMSGRAD: 3, FU.TRACE: 1,
+               FU.NESTEROV: 1}[fu.kind]
+    # the check reads the grads; the update reads the grads and reads
+    # and writes the parameters and each state
+    check_bytes, update_bytes = 4 * n, 4 * n * (1 + 2 * (1 + n_state))
+
+    def run_pass():
+        for _ in range(reps):
+            fu.begin(loss, grads, fused)
+            fu.apply()
+    dev_ms = _kernel_device_ms(run_pass, ('check_kernel', 'update_kernel'))
+    eager_ms = _kernel_device_ms(lambda: eager_step(eager, grads), ())
+    rec = dict(
+        model='SwinIR x8 flagship after the train phase, f32 parameters, '
+        'Adam lr 2e-4 wd 1e-4 (MultiStepLR)', batch=TRAIN_B,
+        n_params=n, n_leaves=len(state.params), tables=len(fu._tabs),
+        steps=steps, nan_step=nan_step, flags_ok=flags_ok,
+        mismatched=mismatched[:20], n_mismatched=len(mismatched),
+        check_ms=dev_ms['check_kernel'][0] / reps,
+        update_ms=dev_ms['update_kernel'][0] / reps,
+        launches_per_step={k: dev_ms[k][1] / reps
+                           for k in ('check_kernel', 'update_kernel')},
+        check_bound=bound(0, check_bytes),
+        update_bound=bound(0, update_bytes),
+        eager_device_ms=eager_ms['all'][0],
+        eager_kernels=eager_ms['all'][1], nvidia_smi=smi)
+    rec['pass_ms'] = rec['check_ms'] + rec['update_ms']
+    ok = (flags_ok and not mismatched and rec['tables'] == 1
+          and rec['launches_per_step'] == {'check_kernel': 1.0,
+                                           'update_kernel': 1.0})
     return rec, ok
 
 
@@ -1633,7 +1790,8 @@ def windowed_profile(dev, smi, steps=5):
                loss=float(holder['total']), launches=launches, **prof,
                nvidia_smi=smi)
     ok = (bool(torch.isfinite(holder['total'])) and bool(ok)
-          and all(v == 0 for v in launches.values()))
+          and all(v == 0 for v in swin_launches(launches).values())
+          and update_launched(launches, steps))
     return rec, ok
 
 
@@ -2418,7 +2576,8 @@ def _zoo_train_one(nt, args, dev, data, b, steps, profile=False):
             groups={'fft': ('fft',)} if nt == 'DFCAN' else None,
             host_ops=False)
     rec['ok'] = (bool(torch.isfinite(holder['total'])) and bool(ok)
-                 and all(v == 0 for v in launches.values()))
+                 and all(v == 0 for v in swin_launches(launches).values())
+                 and update_launched(launches, steps))
     rec['seconds'] = time.perf_counter() - t_net
     del model, state, step, tx
     torch.cuda.empty_cache()
@@ -3186,8 +3345,9 @@ def reconstruct_profile(dev, smi, steps=5, batch=64):
         lambda: step(state, hr, lr, idxs, draws), ms, host_ops=False)
     ok = (math.isfinite(rec['loss']) and rec['flags_sum'] == 0
           and launches['fwd'] == launches['bwd'] == 36 * steps
-          and all(v == 0 for k, v in launches.items()
-                  if k not in ('fwd', 'bwd')))
+          and all(v == 0 for k, v in swin_launches(launches).items()
+                  if k not in ('fwd', 'bwd'))
+          and update_launched(launches, steps))
     return rec, ok
 
 
@@ -3399,7 +3559,9 @@ def entry_phase(name, out_dir=None, keep_dir=None):
             k12 = blocks * steps if cfg['scale'] == 8 else 0
             launches_ok = (
                 lt['fwd'] == k12 and lt['bwd'] == k12
-                and all(lt[k] == 0 for k in lt if k not in ('fwd', 'bwd'))
+                and all(lt[k] == 0 for k in swin_launches(lt)
+                        if k not in ('fwd', 'bwd'))
+                and update_launched(lt, steps)
                 and lv['grouped'] == blocks * fv
                 and all(lv[k] == 0 for k in lv if k != 'grouped')
                 and lts['grouped'] == blocks * ft
@@ -3552,9 +3714,11 @@ def _zoo_entry_run(nt, tmp, data, names, out_dir, total):
         same = all(len(test[ds][m]) == len(rescored[ds][m]) == 1
                    and abs(test[ds][m][0] - rescored[ds][m][0]) <= 1e-6
                    for ds in test for m in ('psnr', 'ssim'))
-        no_launch = all(v == 0 for st in (stats, ev_stats)
-                        for ph in st['launches'].values()
-                        for v in ph.values())
+        no_launch = (all(v == 0 for st in (stats, ev_stats)
+                         for ph in st['launches'].values()
+                         for v in swin_launches(ph).values())
+                     and update_launched(stats['launches']['train'],
+                                         stats['train_steps']))
         windows = stats['train_windows']
         rec.update(
             last_checkpoint=CKPT.find_last_checkpoint(exp),
@@ -4175,8 +4339,10 @@ def ddp_compare(rec, one, recs):
     launches_ok = all(
         t['launches_per_step']['fwd'] == 36
         and t['launches_per_step']['bwd'] == 36 and t['flags_sum'] == 0
-        and all(t['launches'][k] == 0 for k in t['launches']
-                if k not in ('fwd', 'bwd')) for t in timing)
+        and all(t['launches'][k] == 0 for k in swin_launches(t['launches'])
+                if k not in ('fwd', 'bwd'))
+        and update_launched(t['launches'], t['steps'], tables=1)
+        for t in timing)
     nan = [r['nan'] for r in recs]
     nan_ok = all(not n['ok'] and n['skipped'] == 1.0 and n['params_kept']
                  for n in nan)
@@ -4811,6 +4977,11 @@ def main() -> int:
     train = emit('train', **train)
     if not ok:
         print('chip_smoke: train failed', file=sys.stderr)
+        return 1
+    upd, ok = update_pass_check(ctx, smi)
+    emit('update_pass', **upd)
+    if not ok:
+        print('chip_smoke: update_pass failed', file=sys.stderr)
         return 1
     step, state = ctx['step'], ctx['state']
     inputs = step_inputs(ctx['gen'], ctx['cfg'], TRAIN_B)

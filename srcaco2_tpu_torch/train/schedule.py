@@ -14,8 +14,12 @@ parameters stay), which torch.optim cannot express.
 Optimizer state (a dict): {'count', 'mu', 'nu'} under 'adam' (plus
 'nu_max' with AMSGrad), {'trace'} under 'trace' for SGD with momentum,
 and {'count'} under 'schedule'. Counts are int32 scalars.
+
+The chain built here is the CPU path and the reference of
+ops/fused_update.py, which runs the same chain on the card as one pass
+from the settings the transformation carries (`options`).
 """
-from typing import Callable, Dict, NamedTuple
+from typing import Callable, Dict, NamedTuple, Tuple
 
 import torch
 
@@ -36,38 +40,37 @@ def build_schedule(tr: dict) -> Callable[[torch.Tensor], torch.Tensor]:
     (optax.piecewise_constant_schedule) or MyStepLR (single-step decay
     with a floor), times an optional linear warm-up over the first
     G_scheduler_warmup iterations."""
-    base_lr = float(tr['G_optimizer_lr'])
-    kind = tr['G_scheduler_type']
-    gamma = float(tr['G_scheduler_gamma'])
-    warm = int(tr.get('G_scheduler_warmup', 0) or 0)
+    return _schedule(chain_options(tr))
+
+
+def _schedule(opts: 'ChainOptions') -> Callable[[torch.Tensor],
+                                                  torch.Tensor]:
+    base_lr, gamma, warm = opts.base_lr, opts.gamma, opts.warmup
 
     def warmup(lr, count):
         if warm <= 0:
             return lr
         return lr * torch.clamp((count + 1) / warm, max=1.0)
 
-    if kind == constants.MYSTEPLR:
-        step_size = int(tr['G_scheduler_step_size'])
-        min_lr = float(tr['G_scheduler_min_lr'])
+    if opts.schedule == constants.MYSTEPLR:
+        step_size, min_lr = opts.step_size, opts.min_lr
 
         def sched(count):
             lr = base_lr * _pow(gamma, torch.div(count, step_size,
                                                  rounding_mode='floor'))
             return warmup(torch.clamp(lr, min=min_lr), count)
         return sched
-    if kind == constants.MULTISTEPLR:
-        bounds = {int(m): gamma for m in tr['G_scheduler_milestones']}
-
+    if opts.schedule == constants.MULTISTEPLR:
         def sched(count):
             v = torch.tensor(base_lr, dtype=torch.float32,
                              device=count.device)
-            for threshold, scale in sorted(bounds.items()):
+            for threshold in opts.milestones:
                 ind = torch.clamp(torch.sign(threshold - count), min=0) \
                     .float()
-                v = v * ind + (1 - ind) * scale * v
+                v = v * ind + (1 - ind) * gamma * v
             return warmup(v, count)
         return sched
-    raise NotImplementedError(kind)
+    raise NotImplementedError(opts.schedule)
 
 
 def _safe_increment(count: torch.Tensor) -> torch.Tensor:
@@ -130,24 +133,67 @@ def scale_by_schedule(updates: Tensors, state: dict, step_size_fn):
     return out, dict(count=_safe_increment(state['count']))
 
 
+class ChainOptions(NamedTuple):
+    """The chain's settings, which build_optimizer, build_schedule and
+    the fused pass all take from here (the schedule's only where its
+    kind uses them; milestones sorted, each once)."""
+    kind: str
+    amsgrad: bool
+    b1: float
+    b2: float
+    eps: float
+    momentum: float
+    nesterov: bool
+    clip: float
+    wd: float
+    schedule: str
+    base_lr: float
+    gamma: float
+    step_size: int
+    min_lr: float
+    warmup: int
+    milestones: Tuple[int, ...]
+
+
+def chain_options(tr: dict) -> ChainOptions:
+    """The chain's settings of the train config `tr`."""
+    kind = tr['G_scheduler_type']
+    mystep = kind == constants.MYSTEPLR
+    return ChainOptions(
+        kind=tr['G_optimizer_type'],
+        amsgrad=bool(tr.get('G_optimizer_amsgrad', False)),
+        b1=float(tr['G_optimizer_beta1']), b2=float(tr['G_optimizer_beta2']),
+        eps=float(tr['G_optimizer_eps_adam']),
+        momentum=float(tr.get('G_optimizer_momentum', 0.0) or 0.0),
+        nesterov=bool(tr.get('G_optimizer_nesterov', False)),
+        clip=float(tr.get('G_optimizer_clipgrad', 0.0) or 0.0),
+        wd=float(tr.get('G_optimizer_wd', 0.0) or 0.0),
+        schedule=kind, base_lr=float(tr['G_optimizer_lr']),
+        gamma=float(tr['G_scheduler_gamma']),
+        step_size=int(tr['G_scheduler_step_size']) if mystep else 0,
+        min_lr=float(tr['G_scheduler_min_lr']) if mystep else 0.0,
+        warmup=int(tr.get('G_scheduler_warmup', 0) or 0),
+        milestones=() if mystep else tuple(sorted(
+            {int(m) for m in tr['G_scheduler_milestones']})))
+
+
 class GradientTransformation(NamedTuple):
     """optax's pair: init(params) -> state; update(grads, state,
-    params) -> (updates, new state). Nothing is changed in place."""
+    params) -> (updates, new state). Nothing is changed in place.
+    `options` are the chain's settings, for a pass that runs the same
+    chain (ops/fused_update.py)."""
     init: Callable
     update: Callable
+    options: ChainOptions
 
 
 def build_optimizer(tr: dict) -> GradientTransformation:
     """The chain of srcaco2_tpu/train/schedule.py:build_optimizer."""
-    sched = build_schedule(tr)
-    clip = float(tr.get('G_optimizer_clipgrad', 0.0) or 0.0)
-    wd = float(tr.get('G_optimizer_wd', 0.0) or 0.0)
-    kind = tr['G_optimizer_type']
-    b1, b2 = float(tr['G_optimizer_beta1']), float(tr['G_optimizer_beta2'])
-    eps = float(tr['G_optimizer_eps_adam'])
-    amsgrad = bool(tr.get('G_optimizer_amsgrad', False))
-    mom = float(tr.get('G_optimizer_momentum', 0.0) or 0.0)
-    nesterov = bool(tr.get('G_optimizer_nesterov', False))
+    opts = chain_options(tr)
+    sched = _schedule(opts)
+    clip, wd, kind = opts.clip, opts.wd, opts.kind
+    b1, b2, eps, amsgrad = opts.b1, opts.b2, opts.eps, opts.amsgrad
+    mom, nesterov = opts.momentum, opts.nesterov
     if kind not in (constants.ADAM, constants.SGD):
         raise NotImplementedError(kind)
 
@@ -186,4 +232,4 @@ def build_optimizer(tr: dict) -> GradientTransformation:
             u, state['schedule'], lambda count: -1 * sched(count))
         return u, new
 
-    return GradientTransformation(init, update)
+    return GradientTransformation(init, update, opts)

@@ -14,12 +14,17 @@ rows of the global batch and draws; the grads are averaged over the
 ranks between the backward and the finite check, and the loss holder
 with them, so that every rank skips, updates and flags alike.
 
+On the card the checks, the chain, the masked update and the EMA run as
+one multi-tensor pass (ops/fused_update.py), which equals the eager
+chain; the eager chain runs where the parameters are on the CPU.
+
 Each phase is a span of utils/profiling, recorded only while a profiler
 records: `train.step` (one update), and inside it `train.assemble`,
 `train.forward` (the model and the loss), `train.backward`,
 `train.checks` (twice: the finite check of the loss and grads with the
 mask it drives, and the corruption check of the new parameters) and
 `train.optimizer` (the optimizer chain, the masked update and the EMA).
+The counter `train.update_fused` counts the steps that take the pass.
 """
 from typing import Callable
 
@@ -28,10 +33,11 @@ import torch
 from srcaco2_tpu_torch import constants
 from srcaco2_tpu_torch.data import pipeline as P
 from srcaco2_tpu_torch.losses.master import MasterLoss
+from srcaco2_tpu_torch.ops import fused_update
 from srcaco2_tpu_torch.ops.resize import resize2d
 from srcaco2_tpu_torch.parallel import mesh
 from srcaco2_tpu_torch.train.state import TrainState, all_finite, ema_update
-from srcaco2_tpu_torch.utils.profiling import span
+from srcaco2_tpu_torch.utils.profiling import count, span
 
 
 def model_outputs(raw) -> dict:
@@ -128,6 +134,19 @@ def loss_and_grads(model, master: MasterLoss, net_type: str, params: dict,
     return total.detach(), holder, outputs['out'].detach(), grads
 
 
+def _eager_update(tx, state: TrainState, safe, ok, e_decay: float):
+    """The eager chain over the masked grads, the masked update of the
+    parameters and the EMA, one leaf at a time (the CPU path)."""
+    updates, state.opt_state = tx.update(safe, state.opt_state,
+                                         state.params)
+    for k, p in state.params.items():
+        p.copy_(torch.where(ok, p + updates[k], p))
+    if e_decay > 0 and state.ema_params is not None:
+        new_ema = ema_update(state.ema_params, state.params, e_decay)
+        for k, e in state.ema_params.items():
+            e.copy_(new_ema[k])
+
+
 def make_train_step(model, master: MasterLoss, tx, net_type: str,
                     pipe_cfg: P.PipeConfig, e_decay: float = 0.0,
                     steps_per_epoch: int = 1,
@@ -162,6 +181,7 @@ def make_train_step(model, master: MasterLoss, tx, net_type: str,
     if grid is not None:
         mesh.sync_batch_norm(model, grid)
         master.sum_scale = float(grid.data)
+    fused = fused_update.FusedUpdate(tx.options, e_decay)
 
     def step_fn(state: TrainState, hr_u8, lr_u8, idxs, draws):
         with span('train.step'):
@@ -186,21 +206,23 @@ def make_train_step(model, master: MasterLoss, tx, net_type: str,
                     loss, pred_bad = holder['total'], vals[-1] > 0
                 # non-finite loss or grads -> skip the update
                 with span('train.checks'):
-                    ok = torch.isfinite(loss) & all_finite(grads)
-                    safe = {k: torch.where(ok, g, torch.zeros_like(g))
-                            for k, g in grads.items()}
+                    flags = fused.begin(loss, grads, state)
+                    if flags is None:
+                        ok = torch.isfinite(loss) & all_finite(grads)
+                        safe = {k: torch.where(ok, g, torch.zeros_like(g))
+                                for k, g in grads.items()}
+                    else:
+                        ok, bad = flags
                 with span('train.optimizer'):
-                    updates, state.opt_state = tx.update(
-                        safe, state.opt_state, state.params)
-                    for k, p in state.params.items():
-                        p.copy_(torch.where(ok, p + updates[k], p))
-                    if e_decay > 0 and state.ema_params is not None:
-                        new_ema = ema_update(state.ema_params, state.params,
-                                             e_decay)
-                        for k, e in state.ema_params.items():
-                            e.copy_(new_ema[k])
+                    if flags is None:
+                        _eager_update(tx, state, safe, ok, e_decay)
+                    else:
+                        fused.apply()
+                        count('train.update_fused')
                 with span('train.checks'):
-                    corrupt = ~all_finite(state.params) | pred_bad
+                    if flags is None:
+                        bad = ~all_finite(state.params)
+                    corrupt = bad | pred_bad
                 holder = {k: v.detach() for k, v in holder.items()}
                 holder['_skipped'] = (~ok).float()
                 holder['_corrupt'] = corrupt.float()

@@ -17,3 +17,8 @@ import jax  # noqa: E402
 
 jax.config.update('jax_platforms', 'cpu')
 assert jax.device_count() == 8, jax.devices()
+
+
+def pytest_configure(config):
+    config.addinivalue_line('markers', 'chip: needs an NVIDIA card (skips '
+                            'elsewhere, deciding inside the test)')
